@@ -1,0 +1,14 @@
+"""StarCoder2-7B — dense, GQA, RoPE. [arXiv:2402.19173]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="starcoder2-7b", arch_type="dense",
+    num_layers=32, d_model=4608, num_heads=36, num_kv_heads=4, head_dim=128,
+    d_ff=18432, vocab_size=49152, rope_theta=100_000.0,
+    source="arXiv:2402.19173",
+)
+
+SMOKE_CONFIG = CONFIG.replace(
+    name="starcoder2-7b-smoke", num_layers=2, d_model=288, num_heads=9,
+    num_kv_heads=3, head_dim=32, d_ff=512, vocab_size=1024,
+)

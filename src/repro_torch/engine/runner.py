@@ -1,0 +1,240 @@
+"""Model runner: the step functions one AR engine executes.
+
+PagedRunner (dense / vlm / audio stages):
+  - ``prefill_chunk``: process C prompt tokens of ONE request, writing their
+    K/V into the request's pages and attending over all its history pages
+    (chunked prefill, Sarathi-style).
+  - ``decode``: batched one-token step for ALL active slots against the
+    shared page pool (vLLM-style paged attention, the CUDA kernel on the
+    card).
+
+The page pools are updated in place (the JAX package donates them to its
+jitted steps instead).  Writes go only to the positions a request owns:
+the JAX package routes the rest to page id ``num_pages`` and drops them,
+here they are never issued.  Prefill runs with the f32 activations its
+f32 embeddings give (bf16 weights are promoted, as ``jnp`` promotes
+them); decode runs in the model dtype.  Both return final-layer hidden
+states so stage-transfer functions can forward them downstream (e.g.
+Thinker hidden states → Talker).
+
+The recurrent-state runner of the SSM and hybrid families waits for
+their slice of the port.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.engine.kv_cache import (PagedKVConfig, init_kv_pages,
+                                         init_kv_scale_pages)
+from repro_torch.kernels import ops, ref
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``t`` (bf16 widens to f32: numpy has no bf16)."""
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+class PagedRunner:
+    """Paged-KV execution for attention architectures."""
+
+    def __init__(self, cfg: ModelConfig, params, kv: PagedKVConfig):
+        if cfg.arch_type not in ("dense", "vlm", "audio"):
+            raise NotImplementedError(
+                f"PagedRunner: {cfg.arch_type} layers are not ported yet")
+        self.cfg = cfg
+        self.params = params
+        self.kv = kv
+        self.device = params["lm_head"].device
+        self.quant = cfg.kv_cache_dtype == "int8"
+        self.k_pages, self.v_pages = init_kv_pages(cfg, kv, cfg.num_layers, self.device)
+        if self.quant:
+            self.k_scales, self.v_scales = init_kv_scale_pages(
+                cfg, kv, cfg.num_layers, self.device)
+        else:
+            self.k_scales = self.v_scales = None
+        # per-layer views of the stacked block parameters
+        blocks = params["blocks"]
+        self._layers = [L.tree_map(lambda a, i=i: a[i], blocks)
+                        for i in range(cfg.num_layers)]
+        self._window = cfg.sliding_window if cfg.attn_variant == "swa" else 0
+
+    # ---- embeds ---------------------------------------------------------
+    def embed(self, tokens: np.ndarray) -> np.ndarray:
+        """Token embeddings as a host f32 array (the gather runs where the
+        table lives; widening bf16 rows to f32 is exact)."""
+        idx = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=self.device)
+        return self.params["embed"][idx].float().cpu().numpy()
+
+    def _layer_pools(self, i: int):
+        if self.quant:
+            return (self.k_pages[i], self.v_pages[i], self.k_scales[i],
+                    self.v_scales[i])
+        return self.k_pages[i], self.v_pages[i], None, None
+
+    def _write_kv(self, i: int, k: torch.Tensor, v: torch.Tensor,
+                  pid: torch.Tensor, slot: torch.Tensor) -> None:
+        """Write rows k, v (N, nkv, hd) of layer i at (page, slot)."""
+        kp, vp, ksp, vsp = self._layer_pools(i)
+        if self.quant:
+            kq, ks = L.quantize_kv(k)
+            vq, vs = L.quantize_kv(v)
+            kp[pid, slot] = kq
+            vp[pid, slot] = vq
+            ksp[pid, slot] = ks
+            vsp[pid, slot] = vs
+        else:
+            kp[pid, slot] = k.to(kp.dtype)
+            vp[pid, slot] = v.to(vp.dtype)
+
+    # ---- prefill chunk ---------------------------------------------------
+    @torch.no_grad()
+    def prefill_chunk(self, embeds, block_table, start, valid_len):
+        """embeds: (1, C, d); block_table: (pp,); start, valid_len: ints.
+        Returns (logits (C, V), hidden (C, d)) on the runner's device."""
+        cfg = self.cfg
+        page = self.kv.page_size
+        h = torch.as_tensor(embeds, device=self.device)
+        c = h.shape[1]
+        start, valid_len = int(start), int(valid_len)
+        bt = torch.as_tensor(np.asarray(block_table), dtype=torch.long,
+                             device=self.device)
+        pos = start + torch.arange(c, device=self.device)
+        positions = pos[None]                                   # (1, C)
+        written = pos[:valid_len]                               # padding is not written
+        pid, slot = bt[written // page], written % page
+        nkv, hd = cfg.num_kv_heads, cfg.head_dim
+        for i, lp in enumerate(self._layers):
+            hn = L.rmsnorm(lp["ln1"], h, cfg.rmsnorm_eps)
+            q, k, v = L._qkv(cfg, lp["attn"], hn)
+            if cfg.rope_theta:
+                q = L.rope(q, positions, cfg.rope_theta)
+                k = L.rope(k, positions, cfg.rope_theta)
+            self._write_kv(i, k[0, :valid_len], v[0, :valid_len], pid, slot)
+            kp, vp, ksp, vsp = self._layer_pools(i)
+            if self.quant:
+                k_all = (kp[bt].float() * ksp[bt][..., None]).to(h.dtype)
+                v_all = (vp[bt].float() * vsp[bt][..., None]).to(h.dtype)
+            else:
+                k_all, v_all = kp[bt], vp[bt]
+            k_all = k_all.reshape(1, -1, nkv, hd)
+            v_all = v_all.reshape(1, -1, nkv, hd)
+            o = ref.chunk_attention(q, k_all, v_all, start, window=self._window)
+            h = h + L.unproject(o, lp["attn"]["wo"])
+            hn = L.rmsnorm(lp["ln2"], h, cfg.rmsnorm_eps)
+            h = h + L.mlp(lp["mlp"], hn)
+        logits = T._unembed(cfg, self.params, h)[0]
+        return logits, h[0]
+
+    # ---- prefix cache: copy-on-write page copies -------------------------
+    @torch.no_grad()
+    def copy_pages(self, src_pages, dst_pages) -> None:
+        """Copy whole KV pages across all layers (copy-on-write: a request
+        extending a shared cached page gets a private copy first), in
+        place in the pools."""
+        src = torch.as_tensor(np.asarray(src_pages), dtype=torch.long, device=self.device)
+        dst = torch.as_tensor(np.asarray(dst_pages), dtype=torch.long, device=self.device)
+        pools = [self.k_pages, self.v_pages]
+        if self.quant:
+            pools += [self.k_scales, self.v_scales]
+        for pool in pools:
+            pool[:, dst] = pool[:, src]
+
+    # ---- PD disaggregation: KV extraction / injection -------------------
+    @torch.no_grad()
+    def extract_kv(self, block_table, n_tokens: int):
+        """Pull one request's prompt KV out of the page pool.
+
+        Returns (k, v): (L, n_pages*page, nkv, hd) host arrays, copies and
+        never views of the pool (trailing padding past n_tokens holds
+        whatever the pages hold) — the payload a prefill stage ships to a
+        decode stage through the unified connector.  Quantized pools ship
+        dequantized f32, bf16 pools widen to f32.
+        """
+        page = self.kv.page_size
+        n_pages = -(-n_tokens // page)
+        bt = torch.as_tensor(np.asarray(block_table[:n_pages]), dtype=torch.long,
+                             device=self.device)
+        k = self.k_pages[:, bt]
+        v = self.v_pages[:, bt]
+        if self.quant:
+            k = k.float() * self.k_scales[:, bt][..., None]
+            v = v.float() * self.v_scales[:, bt][..., None]
+        shape = (self.cfg.num_layers, n_pages * page,
+                 self.cfg.num_kv_heads, self.cfg.head_dim)
+        return to_host(k.reshape(shape)), to_host(v.reshape(shape))
+
+    @torch.no_grad()
+    def inject_kv(self, k_seed, v_seed, block_table, n_tokens: int) -> None:
+        """Write transferred prompt KV into this engine's page pool."""
+        page = self.kv.page_size
+        n_pages = -(-n_tokens // page)
+        k_seed, v_seed = np.asarray(k_seed), np.asarray(v_seed)
+        pad = n_pages * page - k_seed.shape[1]
+        if pad:
+            padw = [(0, 0), (0, pad), (0, 0), (0, 0)]
+            k_seed = np.pad(k_seed, padw)
+            v_seed = np.pad(v_seed, padw)
+        n_layers, _, nkv, hd = k_seed.shape
+        # copies: connector payloads are read-only views of their buffers
+        kp = torch.tensor(k_seed.reshape(n_layers, n_pages, page, nkv, hd),
+                          device=self.device)
+        vp = torch.tensor(v_seed.reshape(n_layers, n_pages, page, nkv, hd),
+                          device=self.device)
+        bt = torch.as_tensor(np.asarray(block_table[:n_pages]), dtype=torch.long,
+                             device=self.device)
+        if self.quant:
+            kq, ks = L.quantize_kv(kp)
+            vq, vs = L.quantize_kv(vp)
+            self.k_pages[:, bt] = kq
+            self.v_pages[:, bt] = vq
+            self.k_scales[:, bt] = ks
+            self.v_scales[:, bt] = vs
+        else:
+            self.k_pages[:, bt] = kp.to(self.k_pages.dtype)
+            self.v_pages[:, bt] = vp.to(self.v_pages.dtype)
+
+    # ---- batched decode ---------------------------------------------------
+    @torch.no_grad()
+    def decode(self, embeds, block_tables, positions, active):
+        """embeds: (B, 1, d) in the model dtype; block_tables: (B, pp);
+        positions: (B,) current token's write position; active: (B,) bool
+        (host arrays).  Returns (logits (B, V), hidden (B, d)) on the
+        runner's device."""
+        cfg = self.cfg
+        page = self.kv.page_size
+        dev = self.device
+        positions = np.asarray(positions, np.int64)
+        active = np.asarray(active, bool)
+        tables = np.asarray(block_tables, np.int32)
+        rows = np.nonzero(active)[0]
+        pid = torch.as_tensor(tables[rows, positions[rows] // page].astype(np.int64),
+                              device=dev)
+        slot = torch.as_tensor(positions[rows] % page, device=dev)
+        rows_t = torch.as_tensor(rows, device=dev)
+        seq_lens = torch.as_tensor(np.where(active, positions + 1, 0).astype(np.int32),
+                                   device=dev)
+        bt = torch.as_tensor(tables, device=dev)
+        pos_t = torch.as_tensor(positions, device=dev)[:, None]  # (B, 1)
+        h = torch.as_tensor(embeds, device=dev)
+        for i, lp in enumerate(self._layers):
+            hn = L.rmsnorm(lp["ln1"], h, cfg.rmsnorm_eps)
+            q, k, v = L._qkv(cfg, lp["attn"], hn)
+            if cfg.rope_theta:
+                q = L.rope(q, pos_t, cfg.rope_theta)
+                k = L.rope(k, pos_t, cfg.rope_theta)
+            self._write_kv(i, k[rows_t, 0], v[rows_t, 0], pid, slot)
+            kp, vp, ksp, vsp = self._layer_pools(i)
+            o = ops.paged_attention(q[:, 0], kp, vp, bt, seq_lens,
+                                    window=self._window, k_scale_pages=ksp,
+                                    v_scale_pages=vsp)
+            h = h + L.unproject(o.to(h.dtype), lp["attn"]["wo"])[:, None]
+            hn = L.rmsnorm(lp["ln2"], h, cfg.rmsnorm_eps)
+            h = h + L.mlp(lp["mlp"], hn)
+        logits = T._unembed(cfg, self.params, h)[:, 0]
+        return logits, h[:, 0]

@@ -1,0 +1,196 @@
+"""Core neural layers of the dense path: RMSNorm, RoPE, GQA projections,
+int8 KV quantization, SwiGLU MLP.
+
+Functional, like the JAX package: ``init_*`` builds a parameter dict of
+tensors from a ``torch.Generator``, the other functions consume it.
+Layer parameters stack over a leading ``num_layers`` axis (see
+``transformer.init_params``) so weights carry across one tensor per leaf.
+
+Matrix products follow JAX's type promotion, which ``torch.matmul`` does
+not do by itself: an f32 activation against bf16 weights computes in
+f32 (chunked prefill), a bf16 activation against bf16 weights in bf16
+(batched decode).
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+
+def _dense_init(gen: torch.Generator, shape, in_axis_size: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    scale = 1.0 / np.sqrt(max(1, in_axis_size))
+    return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dtype)
+
+
+def stack_init(init_fn, gen: torch.Generator, n: int) -> dict:
+    """Stack ``n`` draws of ``init_fn(gen)`` along a new leading axis,
+    filling preallocated tensors one layer at a time (a full-width model
+    never holds two copies of a stacked leaf)."""
+    first = init_fn(gen)
+
+    def alloc(leaf):
+        out = torch.empty((n, *leaf.shape), dtype=leaf.dtype, device=leaf.device)
+        out[0] = leaf
+        return out
+
+    stacked = tree_map(alloc, first)
+    for i in range(1, n):
+        _tree_zip(lambda dst, src: dst[i].copy_(src), stacked, init_fn(gen))
+    return stacked
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_zip(fn, a, b) -> None:
+    if isinstance(a, dict):
+        for k in a:
+            _tree_zip(fn, a[k], b[k])
+    else:
+        fn(a, b)
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two, as ``jnp`` computes it."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.matmul(x.to(dt), w.to(dt))
+
+
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., d) x (d, *out) -> (..., *out): ``einsum("...d,d...")``."""
+    return matmul(x, w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def unproject(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., nh, hd) x (nh, hd, d) -> (..., d): ``einsum("...qh,qhd")``."""
+    return matmul(o.reshape(*o.shape[:-2], -1), w.reshape(-1, w.shape[-1]))
+
+
+# ----------------------------------------------------------------------------
+# RMSNorm
+# ----------------------------------------------------------------------------
+
+def init_rmsnorm(d: int, dtype: torch.dtype, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"]
+
+
+# ----------------------------------------------------------------------------
+# RoPE
+# ----------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def _rope_freqs(half: int, theta: float, device: str) -> torch.Tensor:
+    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
+    return torch.exp(-log_theta * (torch.arange(half, dtype=torch.float32) / half)
+                     ).to(device)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Apply rotary embeddings.
+
+    x: (..., S, H, hd); positions: broadcastable to (..., S). Split-half
+    convention, computed in f32.
+    """
+    half = x.shape[-1] // 2
+    freqs = _rope_freqs(half, float(theta), str(x.device))
+    ang = positions[..., None].float() * freqs         # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                 # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1f, x2f = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# Attention projections (GQA, optional bias)
+# ----------------------------------------------------------------------------
+
+def init_attention(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    dtype = torch_dtype(cfg.dtype)
+    p = {
+        "wq": _dense_init(gen, (d, nq, hd), d, dtype),
+        "wk": _dense_init(gen, (d, nkv, hd), d, dtype),
+        "wv": _dense_init(gen, (d, nkv, hd), d, dtype),
+        "wo": _dense_init(gen, (nq, hd, d), nq * hd, dtype),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((nq, hd), dtype=dtype, device=gen.device)
+        p["bk"] = torch.zeros((nkv, hd), dtype=dtype, device=gen.device)
+        p["bv"] = torch.zeros((nkv, hd), dtype=dtype, device=gen.device)
+    return p
+
+
+def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    q = project(x, p["wq"])
+    k = project(x, p["wk"])
+    v = project(x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return q, k, v
+
+
+def quantize_kv(x: torch.Tensor):
+    """Per-(token, head) int8 symmetric quantization.
+
+    x: (..., hd) -> (int8 (..., hd), scale (...,) f32).
+    """
+    x32 = x.float()
+    scale = torch.amax(torch.abs(x32), dim=-1) / 127.0 + 1e-8
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+# ----------------------------------------------------------------------------
+# SwiGLU MLP
+# ----------------------------------------------------------------------------
+
+def init_mlp(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    dtype = torch_dtype(cfg.dtype)
+    return {
+        "wg": _dense_init(gen, (d, f), d, dtype),
+        "wu": _dense_init(gen, (d, f), d, dtype),
+        "wd": _dense_init(gen, (f, d), f, dtype),
+    }
+
+
+def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(matmul(x, p["wg"])) * matmul(x, p["wu"])
+    return matmul(h, p["wd"])
+
+
+# ----------------------------------------------------------------------------
+# Transformer block parameters (attention + MLP), pre-norm
+# ----------------------------------------------------------------------------
+
+def init_block(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    if cfg.is_moe:
+        raise NotImplementedError("MoE blocks wait for the port of models/moe.py")
+    dtype = torch_dtype(cfg.dtype)
+    return {
+        "ln1": init_rmsnorm(cfg.d_model, dtype, gen.device),
+        "attn": init_attention(cfg, gen),
+        "ln2": init_rmsnorm(cfg.d_model, dtype, gen.device),
+        "mlp": init_mlp(cfg, gen),
+    }

@@ -1,0 +1,214 @@
+"""The port's PagedRunner and AREngine against the JAX package's, with the
+same weights (carried across by params_from_numpy) and the same inputs.
+
+Runner logits are compared at every step of a chunked prefill and eight
+batched decode steps:
+  - f32 at 2e-5;
+  - with an int8 KV pool at 1e-2 of the logits' scale: a last-ulp f32
+    difference of a projected K/V element can flip its int8 rounding,
+    which moves the logits by a few 1e-3;
+  - a bf16 model at 2e-2 of the logits' scale, in prefill too: its
+    activations are f32 there, but its K/V pool is bf16, and a last-ulp
+    f32 difference can flip a bf16 rounding.
+Engines must produce identical greedy tokens.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jbase
+from repro.engine import ar_engine as jar
+from repro.engine import runner as jrun
+from repro.engine.kv_cache import PagedKVConfig as JKV
+from repro.engine.sampling import SamplingParams as JSP
+from repro.models import transformer as jT
+from repro_torch.configs.pipelines import tiny_lm
+from repro_torch.convert import params_from_numpy
+from repro_torch.engine import ar_engine as tar
+from repro_torch.engine import runner as trun
+from repro_torch.engine.kv_cache import PagedKVConfig as TKV
+from repro_torch.engine.sampling import SamplingParams as TSP
+from repro_torch.engine.sampling import sample_tokens
+
+torch.set_num_threads(1)
+
+KV = dict(num_pages=40, page_size=8, max_pages_per_seq=8)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _pair(dtype="float32", kv_cache_dtype="", vocab=256, seed=3):
+    cfg = tiny_lm("t", vocab=vocab).replace(dtype=dtype, kv_cache_dtype=kv_cache_dtype)
+    jcfg = jbase.ModelConfig(**dataclasses.asdict(cfg))
+    jp = jT.init_params(jcfg, jax.random.PRNGKey(seed))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    return cfg, jcfg, jp, tp
+
+
+def _close(got, want, dtype, kv_cache_dtype=""):
+    g, w = _np(got), _np(want)
+    scale = max(1.0, float(np.abs(w).max()))
+    if dtype == "bfloat16":
+        np.testing.assert_allclose(g, w, rtol=0, atol=2e-2 * scale)
+    elif kv_cache_dtype == "int8":
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-2 * scale)
+    else:
+        np.testing.assert_allclose(g, w, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,kv_cache_dtype", [
+    ("float32", ""), ("bfloat16", ""), ("float32", "int8")])
+def test_runner_prefill_and_decode_match_jax(dtype, kv_cache_dtype):
+    cfg, jcfg, jp, tp = _pair(dtype, kv_cache_dtype)
+    jr, tr = jrun.PagedRunner(jcfg, jp, JKV(**KV)), trun.PagedRunner(cfg, tp, TKV(**KV))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, size=n).astype(np.int32) for n in (13, 21)]
+    tables = np.array([[0, 1, 2, 3, 4, 5, 6, 7], [8, 9, 10, 11, 12, 13, 14, 15],
+                       [0, 0, 0, 0, 0, 0, 0, 0]], np.int32)
+    chunk = 8
+    last = []
+    for s, p in enumerate(prompts):
+        emb = jr.embed(p)
+        np.testing.assert_array_equal(tr.embed(p), emb)
+        for c0 in range(0, len(p), chunk):
+            n = min(chunk, len(p) - c0)
+            e = np.pad(emb[c0:c0 + n], ((0, chunk - n), (0, 0)))
+            jl, jh = jr.prefill_chunk(jnp.asarray(e)[None], tables[s], c0, n)
+            tl, th = tr.prefill_chunk(torch.from_numpy(e)[None], tables[s], c0, n)
+            # prefill runs in f32, over a K/V pool in the model dtype
+            _close(tl[:n], jl[:n], dtype, kv_cache_dtype)
+            _close(th[:n], jh[:n], dtype, kv_cache_dtype)
+        last.append(int(jnp.argmax(jl[n - 1])))
+    # 8 batched decode steps: slots 0 and 1 active, slot 2 inactive; both
+    # packages are fed the tokens the JAX logits pick
+    positions = np.array([len(p) for p in prompts] + [0], np.int32)
+    active = np.array([True, True, False])
+    toks = last + [0]
+    dt = jnp.dtype(dtype)
+    for _ in range(8):
+        emb = np.stack([jr.embed(np.array([t], np.int32))[0] for t in toks])[:, None]
+        jl, jh = jr.decode(jnp.asarray(emb, dt), tables, positions, active)
+        tl, th = tr.decode(torch.from_numpy(emb).to(getattr(torch, dtype)), tables,
+                           positions, active)
+        assert tl.dtype == getattr(torch, dtype)
+        _close(tl[:2], jl[:2], dtype, kv_cache_dtype)
+        _close(th[:2], jh[:2], dtype, kv_cache_dtype)
+        toks = [int(t) for t in np.asarray(jnp.argmax(jl, -1))]
+        positions = positions + active
+    # the pools hold the same K/V afterwards (where the requests wrote)
+    used = tables[:2].reshape(-1)
+    for tpool, jpool in ((tr.k_pages, jr.k_pages), (tr.v_pages, jr.v_pages)):
+        if kv_cache_dtype == "int8":     # codes agree but for rare rounding flips
+            flips = np.abs(_np(tpool[:, used]) - _np(jpool[:, used]))
+            assert flips.max() <= 1 and (flips > 0).mean() < 1e-3
+        else:
+            _close(tpool[:, used], jpool[:, used], dtype)
+
+
+def test_copy_pages_extract_and_inject_match_jax():
+    cfg, jcfg, jp, tp = _pair()
+    jr, tr = jrun.PagedRunner(jcfg, jp, JKV(**KV)), trun.PagedRunner(cfg, tp, TKV(**KV))
+    rng = np.random.default_rng(1)
+    k = rng.standard_normal(tuple(tr.k_pages.shape)).astype(np.float32)
+    v = rng.standard_normal(tuple(tr.v_pages.shape)).astype(np.float32)
+    jr.k_pages, jr.v_pages = jnp.asarray(k), jnp.asarray(v)
+    tr.k_pages, tr.v_pages = torch.from_numpy(k.copy()), torch.from_numpy(v.copy())
+    # copy-on-write page copies, in place
+    jr.copy_pages([1, 2], [5, 6])
+    tr.copy_pages([1, 2], [5, 6])
+    np.testing.assert_array_equal(tr.k_pages.numpy(), np.asarray(jr.k_pages))
+    np.testing.assert_array_equal(tr.v_pages.numpy(), np.asarray(jr.v_pages))
+    # PD transfer: extract is a host copy, inject lands in the same places
+    bt = np.array([3, 7, 9, 0, 0, 0, 0, 0], np.int32)
+    jk, jv = jr.extract_kv(bt, 19)
+    tk, tv = tr.extract_kv(bt, 19)
+    np.testing.assert_array_equal(tk, np.asarray(jk))
+    np.testing.assert_array_equal(tv, np.asarray(jv))
+    tk[...] = 0.0                                     # not a view of the pool
+    assert float(tr.k_pages[:, 3].abs().sum()) > 0
+    dst = np.array([20, 21, 22, 0, 0, 0, 0, 0], np.int32)
+    jr.inject_kv(np.asarray(jk), np.asarray(jv), dst, 19)
+    tr.inject_kv(np.asarray(jk), np.asarray(jv), dst, 19)
+    np.testing.assert_array_equal(tr.k_pages.numpy(), np.asarray(jr.k_pages))
+    np.testing.assert_array_equal(tr.v_pages.numpy(), np.asarray(jr.v_pages))
+
+
+def test_int8_extract_inject_round_trip_matches_jax():
+    cfg, jcfg, jp, tp = _pair(kv_cache_dtype="int8")
+    jr, tr = jrun.PagedRunner(jcfg, jp, JKV(**KV)), trun.PagedRunner(cfg, tp, TKV(**KV))
+    rng = np.random.default_rng(2)
+    seed = rng.standard_normal((2, 16, 2, 32)).astype(np.float32)
+    bt = np.array([4, 5, 0, 0, 0, 0, 0, 0], np.int32)
+    jr.inject_kv(seed, seed, bt, 16)
+    tr.inject_kv(seed, seed, bt, 16)
+    np.testing.assert_array_equal(tr.k_pages.numpy(), np.asarray(jr.k_pages))
+    np.testing.assert_allclose(tr.k_scales.numpy(), np.asarray(jr.k_scales), rtol=1e-7)
+    np.testing.assert_allclose(tr.extract_kv(bt, 16)[0], np.asarray(jr.extract_kv(bt, 16)[0]),
+                               rtol=1e-6, atol=1e-6)
+
+
+def _run_engine(mod, sp_cls, cfg, params, prompts, n_new, **kw):
+    kv_cls = JKV if mod is jar else TKV
+    eng = mod.AREngine("eng", cfg, params, kv=kv_cls(num_pages=64, page_size=8,
+                                                     max_pages_per_seq=16),
+                       max_batch=4, token_budget=64, chunk_size=16,
+                       default_sampling=sp_cls(max_new_tokens=n_new, temperature=0.0),
+                       **kw)
+    out = {}
+    for i, p in enumerate(prompts):
+        eng.enqueue(i, {"tokens": p}, sp_cls(), {})
+    for _ in range(1000):
+        for ev in eng.step():
+            if ev.kind == "finished":
+                out[ev.req_id] = [int(t) for t in ev.payload["tokens"]]
+        if not eng.has_work:
+            break
+    return out, eng
+
+
+@pytest.mark.parametrize("kw", [
+    dict(enable_prefix_cache=False),
+    dict(enable_prefix_cache=True, prefix_index="flat"),
+    dict(enable_prefix_cache=True, prefix_index="radix"),
+    dict(spec_ngram=(2, 3)),
+], ids=["no-cache", "flat", "radix", "spec-ngram"])
+def test_engine_greedy_tokens_match_jax(kw):
+    cfg, jcfg, jp, tp = _pair()
+    rng = np.random.default_rng(4)
+    shared = rng.integers(0, 256, size=20).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(0, 256, size=n).astype(np.int32)])
+               for n in (3, 11, 0, 26)]
+    prompts.append(np.tile(np.array([5, 6, 7], np.int32), 6))  # n-gram drafts hit
+    want, jeng = _run_engine(jar, JSP, jcfg, jp, prompts, 10, **kw)
+    got, teng = _run_engine(tar, TSP, cfg, tp, prompts, 10, **kw)
+    assert got == want and len(got) == len(prompts)
+    assert teng.prefix_stats == jeng.prefix_stats
+    assert teng.spec_stats == jeng.spec_stats
+
+
+def test_ar_engine_refuses_unported_families():
+    for arch in ("falcon_mamba_7b", "zamba2_2_7b", "mixtral_8x7b"):
+        cfg = jbase.get_config(arch, smoke=True)
+        with pytest.raises(NotImplementedError):
+            tar.AREngine("x", cfg, {"lm_head": torch.zeros(1)})
+
+
+def test_sampling_greedy_topk_and_temperature():
+    logits = torch.tensor([[0.0, 3.0, 3.0, -1.0], [5.0, 1.0, 0.0, 0.0]])
+    assert sample_tokens(logits, 0.0, 0).tolist() == [1, 0]      # first maximum
+    gen = torch.Generator().manual_seed(0)
+    draws = torch.stack([sample_tokens(logits, 1.0, 2, gen) for _ in range(400)])
+    assert draws.dtype == torch.int32
+    assert set(draws[:, 0].tolist()) <= {1, 2} and set(draws[:, 1].tolist()) <= {0, 1}
+    # row 0 keeps two equal logits: both drawn about equally often
+    assert 120 < int((draws[:, 0] == 1).sum()) < 280
+    # row 1: p(0) = e^5 / (e^5 + e^1) ~ 0.98
+    assert int((draws[:, 1] == 0).sum()) > 370
