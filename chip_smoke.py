@@ -6,8 +6,9 @@
 Phases, each printing one JSON line with its wall time:
   1. device   — the card's name and power limit (nvidia-smi) and its
                 compute capability, which must be (9, 0);
-  2. build    — both CUDA kernels built from ``src/repro_torch/kernels/csrc``
-                for sm_90a (one nvcc per source, started together);
+  2. build    — the three CUDA kernels built from
+                ``src/repro_torch/kernels/csrc`` for sm_90a (one nvcc per
+                source, started together);
   3. kernels  — each kernel held against its plain PyTorch version on
                 seeded inputs at the serving path's shapes and at full
                 width, timed with CUDA events beside the plain version and
@@ -19,11 +20,21 @@ Phases, each printing one JSON line with its wall time:
                 them with the backend forced to "cuda" (launches counted);
   5. full_width — Qwen2.5-14B at its published width served as a one-stage
                 AR graph (8 requests, 32 greedy tokens each), then one
-                batched decode step with backend "cuda" against "ref".
-Then the ``{"kernels": [...]}`` line (launch counts of phase 4's CLI run)
-and, last, ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
-before the last line.  Without a CUDA device, or without the package next
-to this file, it exits non-zero and prints no result.
+                batched decode step with backend "cuda" against "ref";
+  6. ssm_full_width — Falcon-Mamba-7B at its published width and depth (64
+                Mamba1 layers) served the same way through StateRunner
+                (8 requests of 128-1536 tokens, 32 greedy tokens, scan
+                launches counted), then one 256-token f32 prefill and one
+                batched bf16 decode step with backend "cuda" against "ref";
+  7. hybrid   — Zamba2-2.7B at its published width and depth (54 Mamba2
+                layers, the shared attention after every sixth) served
+                the same way (4 requests, 16 greedy tokens, flash launches
+                counted).
+Then the ``{"kernels": [...]}`` line (launch counts of the runs that use
+each kernel, each counted from 0) and, last, ``{"ok": true, "device":
+{...}}``.  Any failure exits non-zero before the last line.  Without a
+CUDA device, or without the package next to this file, it exits non-zero
+and prints no result.
 """
 from __future__ import annotations
 
@@ -46,6 +57,11 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # the two sum in different orders in f32 and round to bf16 in each of the
 # 48 layers, so they are held to 5% of the logits' largest magnitude
 FULL_WIDTH_LOGIT_RTOL = 5e-2
+# last-position logits (and final state) of one 64-layer f32 Falcon-Mamba
+# prefill, scan kernel vs plain scan: both f32, summed in other orders and
+# with fused multiply-adds in the kernel, so held to 1e-3 of the largest
+# magnitude
+PREFILL_LOGIT_RTOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -221,6 +237,68 @@ def flash_case(torch, F, timer, name, *, B, sq, sk, nq, nkv, hd, dtype,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
+# per (t, channel, state): dt * A, exp, * h, dt * B, * x, +, * C and the
+# add into y (exp counted as one); per (t, channel): D * x and its add
+SCAN_FLOPS_PER_STATE = 8
+SCAN_FLOPS_PER_CHANNEL = 2
+SCAN_LIBRARY = "no single PyTorch call computes a selective scan"
+
+
+def mamba_case(torch, timer, name, *, Bt, S, di, n, dtype, h0, seed=0):
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ref
+    dt_ = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    x = (rn(Bt, S, di) * 0.5).to(dt_)
+    dt = (torch.nn.functional.softplus(rn(Bt, S, di)) * 0.1).to(dt_)
+    A = -torch.exp(rn(di, n) * 0.3)
+    B, C = rn(Bt, S, n).to(dt_), rn(Bt, S, n).to(dt_)
+    D = 1 + 0.1 * rn(di)
+    h = rn(Bt, di, n) if h0 else None
+    y, hl = ms.mamba1_scan(x, dt, A, B, C, D, h)
+    want_y, want_h = ref.mamba1_scan(x, dt, A, B, C, D, h)
+    torch.cuda.synchronize()
+    err_y, ok_y = compare(y, want_y, dtype)
+    err_h, ok_h = compare(hl, want_h, "float32")
+    ms_ = timer(lambda: ms.mamba1_scan(x, dt, A, B, C, D, h))
+    plain_ms = timer(lambda: ref.mamba1_scan(x, dt, A, B, C, D, h), iters=3, warmup=1)
+    elt = torch.finfo(dt_).bits // 8
+    nbytes = (3 * Bt * S * di * elt + 2 * Bt * S * n * elt + 4 * (di * n + di)
+              + 4 * Bt * di * n * (2 if h0 else 1))
+    flops = Bt * S * di * (SCAN_FLOPS_PER_STATE * n + SCAN_FLOPS_PER_CHANNEL)
+    b_ms, b_by = bound(nbytes, flops, "float32")     # the arithmetic is f32 for both types
+    return {"case": name, "Bt": Bt, "S": S, "di": di, "n": n, "dtype": dtype, "h0": h0,
+            "max_abs_err": max(err_y, err_h), "max_abs_err_y": err_y, "max_abs_err_h": err_h,
+            "ok": ok_y and ok_h, "ms": ms_, "plain_ms": plain_ms, "library_ms": None,
+            "library": SCAN_LIBRARY, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def mamba_continuation_case(torch, *, Bt=1, S=512, di=8192, n=16, seed=5):
+    """Two halves with the carried state against one whole scan (f32)."""
+    from repro_torch.kernels import mamba_scan as ms
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((Bt, S, di), generator=g, device="cuda") * 0.5
+    dt = torch.nn.functional.softplus(torch.randn((Bt, S, di), generator=g,
+                                                  device="cuda")) * 0.1
+    A = -torch.exp(torch.randn((di, n), generator=g, device="cuda") * 0.3)
+    B = torch.randn((Bt, S, n), generator=g, device="cuda")
+    C = torch.randn((Bt, S, n), generator=g, device="cuda")
+    D = torch.ones(di, device="cuda")
+    y, h = ms.mamba1_scan(x, dt, A, B, C, D)
+    half = S // 2 + 1
+    y1, h1 = ms.mamba1_scan(x[:, :half], dt[:, :half], A, B[:, :half], C[:, :half], D)
+    y2, h2 = ms.mamba1_scan(x[:, half:], dt[:, half:], A, B[:, half:], C[:, half:], D, h1)
+    torch.cuda.synchronize()
+    err_y, ok_y = compare(torch.cat([y1, y2], 1), y, "float32")
+    err_h, ok_h = compare(h2, h, "float32")
+    return {"case": f"continuation {half}+{S - half} vs {S}", "Bt": Bt, "S": S, "di": di,
+            "n": n, "dtype": "float32", "max_abs_err": max(err_y, err_h), "ok": ok_y and ok_h}
+
+
 def phase_kernels(torch, F):
     timer = Timer(torch)
     paged = [
@@ -253,7 +331,19 @@ def phase_kernels(torch, F):
             s += 1
     flash.append(flash_case(torch, F, timer, "cross 1000x77 bf16", B=2, sq=1000, sk=77,
                             nq=40, nkv=8, hd=128, dtype="bfloat16", seed=s))
-    return {"paged_attention": paged, "flash_attention": flash}
+    flash.append(flash_case(torch, F, timer, "zamba2 prefill f32 causal hd 80", B=1, sq=512,
+                            sk=512, nq=32, nkv=32, hd=80, dtype="float32", causal=True,
+                            seed=s + 1))
+    scan = [
+        mamba_case(torch, timer, "falcon-mamba decode bf16", Bt=8, S=1, di=8192, n=16,
+                   dtype="bfloat16", h0=True),
+        mamba_case(torch, timer, "falcon-mamba prefill f32 (ragged S)", Bt=1, S=1000,
+                   di=8192, n=16, dtype="float32", h0=False, seed=1),
+        mamba_case(torch, timer, "smoke f32", Bt=1, S=8, di=512, n=8, dtype="float32",
+                   h0=False, seed=2),
+        mamba_continuation_case(torch),
+    ]
+    return {"paged_attention": paged, "flash_attention": flash, "mamba1_scan": scan}
 
 
 # ---------------------------------------------------------------------------
@@ -530,6 +620,204 @@ def phase_full_width(torch, n_requests=8, max_new=32, seed=0):
             "decode_logits_rtol": FULL_WIDTH_LOGIT_RTOL, "decode_argmax_agree": agree}
 
 
+# ---------------------------------------------------------------------------
+# phases 6 and 7: the SSM and hybrid families through StateRunner
+# ---------------------------------------------------------------------------
+
+def _free(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def serve_state_arch(torch, arch, *, n_requests, max_new, lens_range, max_batch, max_seq,
+                     counter, seed=0):
+    """Serve ``arch``'s published config as a one-stage AR graph through
+    the threaded Orchestrator, greedy, backend "cuda", with ``counter``
+    (a kernel's launch counter) set to 0 just before and read just after.
+    Returns the run's numbers and the objects the checks reuse."""
+    import argparse as _ap
+
+    import numpy as np
+
+    from repro_torch.core.config import ServeConfig
+    from repro_torch.core.orchestrator import Orchestrator
+    from repro_torch.core.request import Request
+    from repro_torch.engine.sampling import SamplingParams
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_single_arch
+
+    _free(torch)
+    t_init = time.perf_counter()
+    graph, engines, bundle = build_single_arch(arch, max_batch, max_new, seed, device="cuda",
+                                               smoke=False, max_seq=max_seq)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t_init
+    cfg = bundle["cfg"]
+    eng = engines[arch]
+    eng.default_sampling = SamplingParams(max_new_tokens=max_new, temperature=0.0)
+    runner = eng.runner
+    stats = {"prefill_s": 0.0, "prefill_tokens": 0, "prefills": 0,
+             "decode_s": 0.0, "decode_tokens": 0, "decode_steps": 0}
+    first_token = {}
+    prefill, decode, sample = runner.prefill, runner.decode, eng._sample
+
+    def timed_prefill(embeds, slot):
+        t = time.perf_counter()
+        out = prefill(embeds, slot)
+        torch.cuda.synchronize()
+        stats["prefill_s"] += time.perf_counter() - t
+        stats["prefill_tokens"] += int(embeds.shape[1])
+        stats["prefills"] += 1
+        return out
+
+    def timed_decode(embeds, block_tables, positions, active):
+        t = time.perf_counter()
+        out = decode(embeds, block_tables, positions, active)
+        torch.cuda.synchronize()
+        stats["decode_s"] += time.perf_counter() - t
+        stats["decode_tokens"] += int(np.asarray(active).sum())
+        stats["decode_steps"] += 1
+        return out
+
+    def timed_sample(req_id, logits):     # called once per request: its first token
+        tok = sample(req_id, logits)
+        first_token.setdefault(req_id, time.perf_counter())
+        return tok
+
+    runner.prefill, runner.decode, eng._sample = timed_prefill, timed_decode, timed_sample
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lens_range[0], lens_range[1] + 1, size=n_requests)
+    reqs = [Request(inputs={"tokens": rng.integers(0, cfg.vocab_size, size=int(n))
+                            .astype(np.int32)}) for n in lens]
+    config = ServeConfig.from_args(_ap.Namespace(backend="threaded"),
+                                   engine_factories=bundle["engine_factories"])
+    orch = Orchestrator(graph, engines, config=config)
+    ops.set_backend("cuda")
+    counter.reset()
+    t0 = time.perf_counter()
+    orch.start()
+    for r in reqs:
+        orch.submit(r)
+    orch.run(timeout=600.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counter.value
+    ops.set_backend("auto")
+    runner.prefill, runner.decode, eng._sample = prefill, decode, sample
+    done = [r for r in reqs if r.completion_time is not None and not r.failed]
+    if len(done) != len(reqs):
+        fail(f"{arch}: {len(done)}/{len(reqs)} requests completed: "
+             f"{[r.failed for r in reqs if r.failed]}")
+    for r in reqs:
+        toks = np.asarray(r.outputs[arch][0]["tokens"])
+        if toks.shape != (max_new,):
+            fail(f"{arch}: request {r.req_id} produced {toks.shape} tokens")
+    if launches <= 0:
+        fail(f"{arch}: the kernel was not launched on the main path")
+    ttft = sorted(first_token[r.req_id] - r.arrival_time for r in reqs)
+    jct = sorted(r.jct for r in reqs)
+    out = {"arch": arch, "d_model": cfg.d_model, "d_inner": cfg.d_inner,
+           "ssm_state": cfg.ssm_state, "ssm_version": cfg.ssm_version,
+           "layers": cfg.num_layers, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+           "params": sum(t.numel() for t in _leaves(bundle["params"])),
+           "param_count_config": cfg.param_count(), "init_s": t_init,
+           "requests": len(reqs), "completed": len(done),
+           "prompt_lens": [int(n) for n in lens], "new_tokens": max_new, "wall_s": wall,
+           "prefill_tok_per_s": stats["prefill_tokens"] / stats["prefill_s"],
+           "decode_tok_per_s": stats["decode_tokens"] / stats["decode_s"],
+           "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+           "prefills": stats["prefills"], "decode_steps": stats["decode_steps"],
+           "prefill_ms_per_request": 1e3 * stats["prefill_s"] / stats["prefills"],
+           "decode_ms_per_step": 1e3 * stats["decode_s"] / stats["decode_steps"],
+           "ttft_p50_s": ttft[len(ttft) // 2], "jct_p50_s": jct[len(jct) // 2],
+           "jct_max_s": jct[-1], "launches": launches,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return out, {"runner": runner, "reqs": reqs, "cfg": cfg}
+
+
+def phase_ssm_full_width(torch):
+    """Falcon-Mamba-7B at its published width and depth (64 layers)."""
+    import numpy as np
+
+    from repro_torch.engine.runner import _prefill_from_embeds
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+
+    arch = "falcon_mamba_7b"
+    out, ctx = serve_state_arch(torch, arch, n_requests=8, max_new=32, lens_range=(128, 1536),
+                                max_batch=8, max_seq=2048, counter=ms.launches)
+    runner, reqs, cfg = ctx["runner"], ctx["reqs"], ctx["cfg"]
+    out["phase"] = "ssm_full_width"
+
+    # the kernel against the plain scan: one prompt of 256 tokens, prefilled
+    # in f32 with each backend; last-position logits and the final state
+    prompt = reqs[0].inputs["tokens"][:256]
+    emb = torch.as_tensor(runner.embed(prompt), device="cuda")[None]
+    res = {}
+    with torch.no_grad():
+        for backend in ("cuda", "ref"):
+            ops.set_backend(backend)
+            logits, cache1 = _prefill_from_embeds(cfg, runner.params, emb, runner.kv.max_seq)
+            res[backend] = (logits[0, -1].float(), cache1["ssm_h"])
+    ops.set_backend("auto")
+    lg_diff = float((res["cuda"][0] - res["ref"][0]).abs().max())
+    lg_scale = float(res["ref"][0].abs().max())
+    h_diff = float((res["cuda"][1] - res["ref"][1]).abs().max())
+    h_scale = float(res["ref"][1].abs().max())
+    if not (lg_diff <= PREFILL_LOGIT_RTOL * lg_scale and h_diff <= PREFILL_LOGIT_RTOL * h_scale
+            and torch.isfinite(res["cuda"][0]).all()):
+        fail(f"falcon-mamba prefill: |cuda - ref| logits {lg_diff} (scale {lg_scale}), "
+             f"ssm_h {h_diff} (scale {h_scale}) > {PREFILL_LOGIT_RTOL} of the scale")
+
+    # one batched 8-row decode step, kernel vs plain scan, from the same state
+    B = runner.max_batch
+    toks = np.array([int(r.outputs[arch][0]["tokens"][-1]) for r in reqs[:B]])
+    embeds = torch.as_tensor(runner.embed(toks), device="cuda").to(torch.bfloat16)[:, None]
+    positions = np.array([len(r.inputs["tokens"]) + 31 for r in reqs[:B]], np.int32)
+    active = np.ones(B, bool)
+    saved = {k: v.clone() for k, v in runner.cache.items()}
+    dec = {}
+    for backend in ("cuda", "ref"):
+        for k, v in saved.items():
+            runner.cache[k].copy_(v)
+        ops.set_backend(backend)
+        lg, _ = runner.decode(embeds, None, positions, active)
+        dec[backend] = lg.float()
+    torch.cuda.synchronize()
+    diff = float((dec["cuda"] - dec["ref"]).abs().max())
+    scale = float(dec["ref"].abs().max())
+    if not (diff <= FULL_WIDTH_LOGIT_RTOL * scale and torch.isfinite(dec["cuda"]).all()):
+        fail(f"falcon-mamba decode logits: max |cuda - ref| = {diff} > "
+             f"{FULL_WIDTH_LOGIT_RTOL} x {scale}")
+    ops.set_backend("cuda")       # three decode steps, after the warm-up above
+    _, busy = device_profile(torch, lambda: [runner.decode(embeds, None, positions, active)
+                                             for _ in range(3)])
+    ops.set_backend("auto")
+    out.update({"prefill_check_prompt_len": len(prompt),
+                "prefill_logits_max_abs_diff": lg_diff, "prefill_logits_max_abs": lg_scale,
+                "prefill_ssm_h_max_abs_diff": h_diff, "prefill_ssm_h_max_abs": h_scale,
+                "prefill_rtol": PREFILL_LOGIT_RTOL, "decode_logits_max_abs_diff": diff,
+                "decode_logits_max_abs": scale, "decode_logits_rtol": FULL_WIDTH_LOGIT_RTOL,
+                "decode_argmax_agree": float((dec["cuda"].argmax(-1)
+                                              == dec["ref"].argmax(-1)).float().mean()),
+                "decode_3_steps_profile": busy})
+    return out
+
+
+def phase_hybrid(torch):
+    """Zamba2-2.7B at its published width and depth: Mamba2 layers (plain
+    scan, as in the JAX package) and the shared attention (flash kernel,
+    hd 80) after every sixth layer."""
+    from repro_torch.kernels import flash_attention as fa
+    out, _ = serve_state_arch(torch, "zamba2_2_7b", n_requests=4, max_new=16,
+                              lens_range=(128, 512), max_batch=4, max_seq=1024,
+                              counter=fa.launches)
+    out["phase"] = "hybrid"
+    return out
+
+
 def device_profile(torch, fn):
     """Run ``fn()`` under torch.profiler; return its result and its wall
     time, the device time of the kernels and copies it ran (device-side
@@ -573,7 +861,15 @@ KERNEL_META = {
     "flash_attention": {
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:73"},
+    "mamba1_scan": {
+        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:58"},
 }
+
+
+def library_of(name: str) -> str:
+    """The build name of a kernel: its source file's stem."""
+    return os.path.splitext(os.path.basename(KERNEL_META[name]["source"]))[0]
 
 
 def main() -> int:
@@ -610,7 +906,7 @@ def main() -> int:
         fail(f"compute capability {cap}, need (9, 0)")
 
     t = time.perf_counter()
-    built = build.build(list(KERNEL_META))
+    built = build.build(sorted({library_of(k) for k in KERNEL_META}))
     regs = {}
     for name, info in built.items():
         regs[name] = sorted({int(x.split("Used ")[1].split()[0])
@@ -636,19 +932,39 @@ def main() -> int:
     full["seconds"] = time.perf_counter() - t
     emit(full)
 
+    t = time.perf_counter()
+    ssm = phase_ssm_full_width(torch)
+    ssm["seconds"] = time.perf_counter() - t
+    emit(ssm)
+
+    t = time.perf_counter()
+    hybrid = phase_hybrid(torch)
+    hybrid["seconds"] = time.perf_counter() - t
+    emit(hybrid)
+
+    # launches of each kernel in the runs that use it, each counted from 0
+    by_run = {"paged_attention": {"qwen_omni": launches["paged_attention"],
+                                  "full_width": full["paged_launches"]},
+              "flash_attention": {"qwen_omni": launches["flash_attention"],
+                                  "hybrid": hybrid["launches"]},
+              "mamba1_scan": {"ssm_full_width": ssm["launches"]}}
     kernels = []
     for name, meta in KERNEL_META.items():
-        head = cases[name][0]          # the shape the qwen_omni path gives it
+        # the first case is the shape the main path gives the kernel most
+        # often: the qwen_omni slice, the vocoder, Falcon-Mamba's decode
+        head = cases[name][0]
+        lib = head["library_ms"]
         kernels.append({
-            "name": name, "route": "cuda", **meta, "launches": launches[name],
+            "name": name, "route": "cuda", **meta,
+            "launches": sum(by_run[name].values()), "launches_by_run": by_run[name],
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "bound_by": head["bound_by"], "library_ms": lib,
             "max_err": max(c["max_abs_err"] for c in cases[name]),
             "us": head["ms"] * 1e3, "plain_us": head["plain_ms"] * 1e3,
-            "library_us": head["library_ms"] * 1e3,
+            "library_us": lib * 1e3 if lib is not None else None,
             "cases": [{k: c[k] for k in ("case", "dtype", "max_abs_err", "ms", "plain_ms",
-                                         "library_ms", "bound_ms", "bound_by")}
+                                         "library_ms", "bound_ms", "bound_by") if k in c}
                       for c in cases[name]]})
     print(smi, flush=True)
     emit({"kernels": kernels, "seconds_total": time.perf_counter() - t_start})

@@ -19,7 +19,7 @@ from repro_torch.core.request import StageEvent
 from repro_torch.engine.kv_cache import (PagedKVConfig, embed_prefix_keys,
                                    hash_embed_blocks, hash_token_blocks,
                                    token_prefix_keys)
-from repro_torch.engine.runner import PagedRunner, to_host
+from repro_torch.engine.runner import PagedRunner, StateRunner, to_host
 from repro_torch.engine.sampling import SamplingParams, sample_tokens
 from repro_torch.engine.scheduler import Scheduler
 
@@ -85,11 +85,19 @@ class AREngine:
                                    enable_prefix_cache=self.enable_prefix_cache,
                                    prefix_index=prefix_index)
         self._seed_events = 0           # pages warm-seeded into this replica
-        if cfg.arch_type in ("ssm", "hybrid", "moe"):
-            raise NotImplementedError(
-                f"AREngine: {cfg.arch_type} stages are not ported yet")
-        self.runner: Any = PagedRunner(cfg, params, self.kv)
-        self._paged = True
+        if cfg.arch_type == "moe":
+            raise NotImplementedError("AREngine: moe stages are not ported yet")
+        if cfg.arch_type in ("ssm", "hybrid"):
+            self.runner: Any = StateRunner(cfg, params, self.kv, max_batch)
+            self._paged = False
+            # SSM prefill is one scan: admit whole prompts as one chunk, and
+            # budget a step for every slot's whole prompt, so that no prompt
+            # is split (the JAX package would restart the state of a split one)
+            self.scheduler.chunk_size = self.kv.max_seq
+            self.scheduler.token_budget = max(token_budget, max_batch * self.kv.max_seq)
+        else:
+            self.runner = PagedRunner(cfg, params, self.kv)
+            self._paged = True
         self.device = self.runner.device
         self._rt: Dict[int, _ReqRuntime] = {}
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -417,16 +425,21 @@ class AREngine:
             rt = self._rt[ch.req_id]
             seq = self.scheduler.running[ch.req_id]
             emb = rt.prompt_embeds[ch.start:ch.start + ch.length]
-            # pad to the chunk bucket, as the JAX package does to keep its
-            # jit shapes few (the padding is computed but never written)
-            bucket = self.scheduler.chunk_size
-            pad = bucket - emb.shape[0] if emb.shape[0] < bucket else 0
-            embp = np.pad(emb, ((0, pad), (0, 0)))
-            bt = self.scheduler.tables.row(ch.req_id)
-            logits, hidden = self.runner.prefill_chunk(
-                torch.as_tensor(embp, device=self.device)[None], bt, ch.start,
-                ch.length)
-            last_logits = logits[ch.length - 1]
+            if self._paged:
+                # pad to the chunk bucket, as the JAX package does to keep
+                # its jit shapes few (the padding is computed but never written)
+                bucket = self.scheduler.chunk_size
+                pad = bucket - emb.shape[0] if emb.shape[0] < bucket else 0
+                embp = np.pad(emb, ((0, pad), (0, 0)))
+                bt = self.scheduler.tables.row(ch.req_id)
+                logits, hidden = self.runner.prefill_chunk(
+                    torch.as_tensor(embp, device=self.device)[None], bt, ch.start,
+                    ch.length)
+                last_logits = logits[ch.length - 1]
+            else:
+                logits, hidden = self.runner.prefill(
+                    torch.as_tensor(emb, device=self.device)[None], seq.slot)
+                last_logits = logits[-1]
             self.scheduler.note_prefill(ch.req_id, ch.length)
             if not seq.in_prefill and seq.resumed:
                 # resumed after preemption: the next token was already
@@ -474,7 +487,8 @@ class AREngine:
             logits, hidden = self.runner.decode(
                 torch.as_tensor(embeds, device=self.device).to(dt), tables,
                 positions, active)
-            hidden_np = to_host(hidden) if self.collect_hidden else None
+            hidden_np = (to_host(hidden) if self.collect_hidden and hidden is not None
+                         else None)
             # batch sampling: one call per (temperature, top_k) group
             groups: Dict[tuple, List[int]] = {}
             for rid in dec_ids:

@@ -1,4 +1,4 @@
-"""Model runner: the step functions one AR engine executes.
+"""Model runners: the step functions one AR engine executes.
 
 PagedRunner (dense / vlm / audio stages):
   - ``prefill_chunk``: process C prompt tokens of ONE request, writing their
@@ -8,17 +8,21 @@ PagedRunner (dense / vlm / audio stages):
     shared page pool (vLLM-style paged attention, the CUDA kernel on the
     card).
 
-The page pools are updated in place (the JAX package donates them to its
-jitted steps instead).  Writes go only to the positions a request owns:
-the JAX package routes the rest to page id ``num_pages`` and drops them,
-here they are never issued.  Prefill runs with the f32 activations its
-f32 embeddings give (bf16 weights are promoted, as ``jnp`` promotes
-them); decode runs in the model dtype.  Both return final-layer hidden
-states so stage-transfer functions can forward them downstream (e.g.
-Thinker hidden states → Talker).
+StateRunner (ssm / hybrid stages): a constant-size recurrent state per
+slot (plus a dense KV cache per shared-attention site of the hybrid),
+through the model's ``forward_prefill``/``forward_decode``; every Mamba1
+layer's scan is the CUDA kernel on the card.
 
-The recurrent-state runner of the SSM and hybrid families waits for
-their slice of the port.
+The page pools and state caches are updated in place (the JAX package
+donates them to its jitted steps instead).  Writes go only to the
+positions a request owns: the JAX package routes the rest to page id
+``num_pages`` and drops them, or masks inactive slots back; here they are
+never issued.  Prefill runs with the f32 activations its f32 embeddings
+give (bf16 weights are promoted, as ``jnp`` promotes them); decode runs
+in the model dtype.  PagedRunner returns final-layer hidden states so
+stage-transfer functions can forward them downstream (e.g. Thinker
+hidden states → Talker); StateRunner, as in the JAX package, returns
+none.
 """
 from __future__ import annotations
 
@@ -238,3 +242,61 @@ class PagedRunner:
             h = h + L.mlp(lp["mlp"], hn)
         logits = T._unembed(cfg, self.params, h)[:, 0]
         return logits, h[:, 0]
+
+
+class StateRunner:
+    """Recurrent-state execution for SSM / hybrid architectures.
+
+    Slots share batched state tensors; prefill is one scan per request
+    (an SSM prefill has no chunking: the scan IS the prefill) whose
+    batch-1 cache is cast into the slot, and decode is a batched
+    one-token step that leaves inactive slots' state and KV untouched.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, kv: PagedKVConfig, max_batch: int):
+        if cfg.arch_type not in ("ssm", "hybrid"):
+            raise ValueError(f"StateRunner serves ssm and hybrid models, not {cfg.arch_type}")
+        self.cfg = cfg
+        self.params = params
+        self.kv = kv
+        self.max_batch = max_batch
+        self.device = params["lm_head"].device
+        self.cache = T.init_decode_cache(cfg, max_batch, kv.max_seq, self.device)
+
+    def embed(self, tokens: np.ndarray) -> np.ndarray:
+        """Token embeddings as a host f32 array."""
+        idx = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=self.device)
+        return self.params["embed"][idx].float().cpu().numpy()
+
+    @torch.no_grad()
+    def prefill(self, embeds: torch.Tensor, slot: int):
+        """embeds: (1, S, d), the whole prompt.  Fills ``slot``'s state
+        (and KV) and returns (logits (S, V), None)."""
+        logits, cache1 = _prefill_from_embeds(self.cfg, self.params, embeds,
+                                              self.kv.max_seq)
+        for name, c in self.cache.items():
+            c[:, slot] = cache1[name][:, 0]     # cast to the cache's dtype, as .at[].set does
+        return logits[0], None
+
+    @torch.no_grad()
+    def decode(self, embeds, block_tables, positions, active):
+        """embeds: (B, 1, d) in the model dtype; positions: (B,) current
+        token's position; active: (B,) bool (host arrays; block_tables is
+        unused).  Returns (logits (B, V), None)."""
+        rows = torch.as_tensor(np.nonzero(np.asarray(active, bool))[0], device=self.device)
+        pos = torch.as_tensor(np.asarray(positions, np.int64), device=self.device)
+        logits, _ = _decode_from_embeds(self.cfg, self.params, self.cache, embeds, pos, rows)
+        return logits[:, 0], None
+
+
+# ---- embed-level wrappers around transformer.py (prompts may be embeds) ----
+
+def _prefill_from_embeds(cfg, params, embeds, max_seq):
+    """transformer.forward_prefill starting from embeddings (the inputs
+    are treated as precomputed frames, which _embed passes through)."""
+    return T.forward_prefill(cfg.replace(modality="audio_frames"), params, embeds, max_seq)
+
+
+def _decode_from_embeds(cfg, params, cache, embeds, positions, rows=None):
+    return T.forward_decode(cfg.replace(modality="audio_frames"), params, cache, embeds,
+                            positions, rows)

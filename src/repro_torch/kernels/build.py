@@ -36,10 +36,13 @@ ENTRY_POINTS = {
                         [_P] * 8 + [_I] * 9 + [_F, _P]),
     "flash_attention": ("flash_attention_launch",
                         [_P] * 4 + [_I] * 6 + [_L] * 9 + [_I] * 3 + [_F, _P]),
+    "mamba_scan": ("mamba1_scan_launch",
+                   [_P] * 9 + [_I] * 4 + [_L] * 8 + [_I, _P]),
 }
 
 _ARG_ERRORS = {-1: "unsupported dtype combination", -2: "unsupported head_dim",
-               -3: "unsupported head grouping", -4: "empty or invalid shape"}
+               -3: "unsupported head grouping", -4: "empty or invalid shape",
+               -5: "unsupported state size"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}       # guarded-by: _lock

@@ -1,4 +1,4 @@
-// Shared helpers of the attention kernels: element conversions, warp
+// Shared helpers of the kernels: element conversions, warp
 // reductions and the error codes the C entry points return besides
 // cudaError_t values.
 #pragma once
@@ -23,6 +23,7 @@ enum ArgError : int {
   kBadHeadDim = -2,
   kBadGroup = -3,
   kBadShape = -4,
+  kBadState = -5,
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }

@@ -187,6 +187,9 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* out, in
     case 64:
       return launch<T, 64>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs, causal, window,
                            scale, stream);
+    case 80:  // Zamba2's shared attention; 5 float4 chunks per thread, 20 KB of K/V tiles
+      return launch<T, 80>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs, causal, window,
+                           scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs, causal, window,
                             scale, stream);

@@ -67,3 +67,15 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
     return ref.paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
                                window=window, k_scale_pages=k_scale_pages,
                                v_scale_pages=v_scale_pages)
+
+
+def mamba1_scan(x, dt, A, B, C, D, h0=None, *, backend=None):
+    if _use_cuda(x, backend, "mamba1_scan"):
+        from repro_torch.kernels import mamba_scan as ms
+        return ms.mamba1_scan(x, dt, A, B, C, D, h0)
+    return ref.mamba1_scan(x, dt, A, B, C, D, h0)
+
+
+def mamba2_scan(x, dt, A, B, C, D, h0=None, *, backend=None):
+    # no kernel in either package: the JAX package runs its jnp oracle too
+    return ref.mamba2_scan(x, dt, A, B, C, D, h0)

@@ -1,15 +1,17 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the attention kernels and the Mamba scans.
 
 They compute what the CUDA kernels compute, in the most direct way, and
 are the numerically trusted side of every comparison: the CPU tests hold
 them against the JAX package's oracles, and ``chip_smoke.py`` holds each
 CUDA kernel against them on the card.  On a CPU tensor the kernel
 wrappers run these functions; on the card nothing on the serving path
-uses them unless the backend is set to ``"ref"``.
+uses them unless the backend is set to ``"ref"`` (``mamba2_scan`` is the
+exception: it has no kernel in either package).
 
 Attention uses grouped (GQA) einsums: K/V are never repeated to
 ``num_heads``.  Masked scores take the finite ``-2**30``, so a row with
-every key masked averages V instead of giving NaN.
+every key masked averages V instead of giving NaN.  The scans run a
+sequential loop over S in f32, as the JAX oracles' ``lax.scan`` does.
 """
 from __future__ import annotations
 
@@ -153,3 +155,55 @@ def chunk_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
         mask = mask & (kpos > qpos - window)
     out = _attend(qg, k_all, v_all, mask[:, None, None])
     return out.reshape(b, c, nq, hd).to(q.dtype)
+
+
+# ----------------------------------------------------------------------------
+# Mamba selective scans
+# ----------------------------------------------------------------------------
+
+def mamba1_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                C: torch.Tensor, D: torch.Tensor, h0: torch.Tensor | None = None):
+    """Mamba1 selective scan.
+
+    x, dt: (Bt, S, di); A: (di, n); B, C: (Bt, S, n); D: (di,).
+    h0: optional initial state (Bt, di, n).  Per step
+    h <- exp(dt A) h + dt B x and y = h . C + D x.  Returns (y (Bt, S, di)
+    in x.dtype, h_last (Bt, di, n) f32).
+    """
+    bt, _, di = x.shape
+    n = A.shape[1]
+    xf, dtf, Bf, Cf, Af = (t.float() for t in (x, dt, B, C, A))
+    h = (torch.zeros((bt, di, n), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(x.shape[1]):
+        dtt = dtf[:, t, :, None]                                  # (Bt, di, 1)
+        dA = torch.exp(dtt * Af[None])                            # (Bt, di, n)
+        dBx = dtt * Bf[:, t, None, :] * xf[:, t, :, None]
+        h = dA * h + dBx
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    y = torch.stack(ys, 1) + xf * D.float()[None, None]
+    return y.to(x.dtype), h
+
+
+def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                C: torch.Tensor, D: torch.Tensor, h0: torch.Tensor | None = None):
+    """Mamba2 (SSD) scan with scalar-per-head A.
+
+    x: (Bt, S, nh, hp); dt: (Bt, S, nh); A, D: (nh,); B, C: (Bt, S, n).
+    Returns (y (Bt, S, nh, hp) in x.dtype, h_last (Bt, nh, hp, n) f32).
+    """
+    bt, _, nh, hp = x.shape
+    n = B.shape[-1]
+    xf, dtf, Bf, Cf, Af = (t.float() for t in (x, dt, B, C, A))
+    h = (torch.zeros((bt, nh, hp, n), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(x.shape[1]):
+        dtt = dtf[:, t]                                           # (Bt, nh)
+        dA = torch.exp(dtt * Af[None])
+        dBx = (dtt[..., None, None] * xf[:, t, ..., None]) * Bf[:, t, None, None, :]
+        h = dA[..., None, None] * h + dBx
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cf[:, t]))
+    y = torch.stack(ys, 1) + xf * D.float()[None, None, :, None]
+    return y.to(x.dtype), h

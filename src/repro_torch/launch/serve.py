@@ -10,9 +10,11 @@ Two modes:
     worker thread while the front-end keeps admitting
       PYTHONPATH=src python -m repro_torch.launch.serve --pipeline qwen_omni \
           --online --requests 16 --rate 4.0 --max-inflight 8
-  - single: serve one dense architecture (smoke-scale) as a 1-stage graph
+  - single: serve one dense, SSM or hybrid architecture (smoke-scale) as
+    a 1-stage graph
       PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_5_14b \
           --requests 4
+      PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon_mamba_7b
 
 ``--device`` defaults to ``cuda``; without a card the launcher stops with
 an error unless ``--device cpu`` is given.
@@ -43,9 +45,9 @@ from repro_torch.models import transformer as T
 def build_single_arch(arch: str, max_batch: int, max_new: int, seed: int = 0,
                       prefix_cache: bool = False, device=None, *,
                       smoke: bool = True, max_seq: int = 256):
-    """One dense architecture as a one-stage AR graph.  ``smoke=False``
-    serves the published config (``CONFIG``); ``max_seq`` sizes each
-    sequence's KV pages."""
+    """One dense, SSM or hybrid architecture as a one-stage AR graph.
+    ``smoke=False`` serves the published config (``CONFIG``); ``max_seq``
+    sizes each sequence's KV pages (or the hybrid's dense KV caches)."""
     dev = resolve_device(device)
     cfg = get_config(arch, smoke=smoke)
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
@@ -128,7 +130,8 @@ def main() -> None:
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--pipeline", default=None, choices=[None, "qwen_omni"])
     ap.add_argument("--arch", default=None,
-                    help="serve one dense architecture's SMOKE_CONFIG")
+                    help="serve one dense, SSM or hybrid architecture's "
+                         "SMOKE_CONFIG")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "kernel versions)")

@@ -1,5 +1,5 @@
-"""Core neural layers of the dense path: RMSNorm, RoPE, GQA projections,
-int8 KV quantization, SwiGLU MLP.
+"""Core neural layers: RMSNorm, RoPE, GQA projections, int8 KV
+quantization, dense-cache decode attention, SwiGLU MLP.
 
 Functional, like the JAX package: ``init_*`` builds a parameter dict of
 tensors from a ``torch.Generator``, the other functions consume it.
@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 
 
 def _dense_init(gen: torch.Generator, shape, in_axis_size: int,
@@ -161,6 +162,54 @@ def quantize_kv(x: torch.Tensor):
     return q, scale
 
 
+def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, pos: torch.Tensor,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     k_scale: torch.Tensor | None = None,
+                     v_scale: torch.Tensor | None = None,
+                     rows: torch.Tensor | None = None) -> torch.Tensor:
+    """One-token decode against a dense KV cache.
+
+    x: (B, 1, d); pos: (B,) current positions; caches (B, S, nkv, hd),
+    int8 with (B, S, nkv) f32 scales when cfg.kv_cache_dtype == "int8".
+    The new token's K/V are written into the caches in place (the JAX
+    package returns new caches instead), for the batch rows ``rows`` (all
+    when None): the other rows' caches stay as they were, as the JAX
+    runner's mask keeps them.  A sliding-window cache of ``window``
+    columns is a ring: writes wrap, and column j holds absolute position
+    pos - ((pos - j) mod S).  Returns (B, 1, d).
+    """
+    q, k, v = _qkv(cfg, p, x)                       # q (B,1,nq,hd), k/v (B,1,nkv,hd)
+    posb = pos.long().expand(x.shape[0])
+    if cfg.head_dim and cfg.rope_theta:
+        q = rope(q, posb[:, None], cfg.rope_theta)
+        k = rope(k, posb[:, None], cfg.rope_theta)
+    s = k_cache.shape[1]
+    window = cfg.sliding_window if cfg.attn_variant == "swa" else 0
+    ring = bool(window) and s == window
+    write_idx = posb % s if ring else posb
+    if rows is None:
+        rows = torch.arange(x.shape[0], device=x.device)
+    col = write_idx[rows]
+    if cfg.kv_cache_dtype == "int8":
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        k_cache[rows, col] = kq[rows, 0]
+        v_cache[rows, col] = vq[rows, 0]
+        k_scale[rows, col] = ks[rows, 0]
+        v_scale[rows, col] = vs[rows, 0]
+    else:
+        k_cache[rows, col] = k[rows, 0].to(k_cache.dtype)
+        v_cache[rows, col] = v[rows, 0].to(v_cache.dtype)
+    key_positions = None
+    if ring:
+        j = torch.arange(s, device=x.device)[None, :]
+        key_positions = posb[:, None] - ((posb[:, None] - j) % s)
+    o = ops.decode_attention(q, k_cache, v_cache, posb, window=window,
+                             k_scale=k_scale, v_scale=v_scale,
+                             key_positions=key_positions)
+    return unproject(o.to(x.dtype), p["wo"])
+
+
 # ----------------------------------------------------------------------------
 # SwiGLU MLP
 # ----------------------------------------------------------------------------
@@ -194,3 +243,15 @@ def init_block(cfg: ModelConfig, gen: torch.Generator) -> dict:
         "ln2": init_rmsnorm(cfg.d_model, dtype, gen.device),
         "mlp": init_mlp(cfg, gen),
     }
+
+
+def block_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, pos: torch.Tensor,
+                 k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 k_scale: torch.Tensor | None = None,
+                 v_scale: torch.Tensor | None = None,
+                 rows: torch.Tensor | None = None) -> torch.Tensor:
+    """Pre-norm attention + MLP block for one decode token; the caches
+    are written in place (see ``attention_decode``)."""
+    x = x + attention_decode(cfg, p["attn"], rmsnorm(p["ln1"], x, cfg.rmsnorm_eps), pos,
+                             k_cache, v_cache, k_scale, v_scale, rows)
+    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.rmsnorm_eps))

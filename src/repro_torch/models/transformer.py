@@ -1,27 +1,36 @@
-"""Model parameters and the embedding/unembedding of the dense path.
+"""Model parameters, the embedding/unembedding, and the recurrent-state
+families' prefill and decode.
 
-  init_params(cfg, gen)          -> params (layer-stacked ``blocks``)
-  _embed / _unembed              -> token embedding / final norm + lm head
+  init_params(cfg, gen)                          -> params
+  forward_prefill(cfg, params, inputs, max_seq)  -> (logits, cache)   ssm / hybrid
+  init_decode_cache(cfg, batch, max_seq, device) -> cache             ssm / hybrid
+  forward_decode(cfg, params, cache, tok, pos)   -> (logits, cache)   ssm / hybrid
 
-The per-layer forward passes live in ``engine/runner.py`` (paged KV);
-``forward_full``/``forward_prefill``/``forward_decode`` and the SSM and
-hybrid families wait for their slice of the port.
+Layer parameters stack over a leading axis (``blocks``; ``mamba`` for the
+SSM and hybrid families, whose hybrid also has ONE ``shared_attn`` block
+applied after every ``shared_attn_every`` Mamba layers, with a KV cache
+per application site).  The dense path's per-layer passes live in
+``engine/runner.py`` (paged KV).  ``forward_full`` and the MoE family wait
+for the training and MoE slices of the port.
+
+``forward_decode`` updates the cache in place (the JAX package returns a
+new one): a full-width state cache is not copied every step.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
+
+_STATE_FAMILIES = ("ssm", "hybrid")
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random parameters drawn from ``gen`` on ``gen.device``.  The layout
-    is the JAX package's: ``blocks`` leaves carry a leading num_layers
-    axis."""
-    if cfg.arch_type in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.arch_type} models wait for the port of models/mamba.py")
+    is the JAX package's: stacked leaves carry a leading layer axis."""
     dtype = L.torch_dtype(cfg.dtype)
     p: dict = {}
     if cfg.modality != "audio_frames":
@@ -33,7 +42,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
         p["embed"] = emb
     p["final_ln"] = L.init_rmsnorm(cfg.d_model, dtype, gen.device)
     p["lm_head"] = L._dense_init(gen, (cfg.d_model, cfg.vocab_size), cfg.d_model, dtype)
-    p["blocks"] = L.stack_init(lambda g: L.init_block(cfg, g), gen, cfg.num_layers)
+    if cfg.arch_type in _STATE_FAMILIES:
+        p["mamba"] = L.stack_init(lambda g: M.init_mamba(cfg, g), gen, cfg.num_layers)
+        if cfg.arch_type == "hybrid":
+            p["shared_attn"] = L.init_block(cfg, gen)    # one block, shared by every site
+    else:
+        p["blocks"] = L.stack_init(lambda g: L.init_block(cfg, g), gen, cfg.num_layers)
     return p
 
 
@@ -46,3 +60,160 @@ def _embed(cfg: ModelConfig, params: dict, inputs: torch.Tensor) -> torch.Tensor
 def _unembed(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     x = L.rmsnorm(params["final_ln"], x, cfg.rmsnorm_eps)
     return L.matmul(x, params["lm_head"])
+
+
+def _n_sites(cfg: ModelConfig) -> int:
+    """Hybrid: number of shared-attention application sites."""
+    return cfg.num_layers // cfg.shared_attn_every
+
+
+def _layer(params: dict, i: int) -> dict:
+    return L.tree_map(lambda a: a[i], params["mamba"])
+
+
+def _check_family(cfg: ModelConfig, what: str) -> None:
+    if cfg.arch_type not in _STATE_FAMILIES:
+        raise NotImplementedError(
+            f"{what}: {cfg.arch_type} models run in engine/runner.py's PagedRunner "
+            f"(dense) or wait for their slice of the port (moe)")
+
+
+# ----------------------------------------------------------------------------
+# decode cache
+# ----------------------------------------------------------------------------
+
+def _kv_store_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.int8 if cfg.kv_cache_dtype == "int8" else L.torch_dtype(cfg.dtype)
+
+
+def kv_cache_seq(cfg: ModelConfig, max_seq: int) -> int:
+    """SWA caches are ring buffers of ``sliding_window`` columns."""
+    if cfg.attn_variant == "swa" and 0 < cfg.sliding_window < max_seq:
+        return cfg.sliding_window
+    return max_seq
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> dict:
+    """Zero state (``ssm_h`` f32, ``ssm_conv`` in cfg.dtype, each with a
+    leading layer axis) and, for the hybrid, one dense KV cache per
+    shared-attention site (``k``/``v``, int8 with ``k_scale``/``v_scale``)."""
+    _check_family(cfg, "init_decode_cache")
+    h, conv = M.init_mamba_state(cfg, batch, device)
+    n = cfg.num_layers
+    cache = {"ssm_h": torch.zeros((n, *h.shape), dtype=h.dtype, device=device),
+             "ssm_conv": torch.zeros((n, *conv.shape), dtype=conv.dtype, device=device)}
+    if cfg.arch_type == "hybrid":
+        shape = (_n_sites(cfg), batch, kv_cache_seq(cfg, max_seq), cfg.num_kv_heads,
+                 cfg.head_dim)
+        cache["k"] = torch.zeros(shape, dtype=_kv_store_dtype(cfg), device=device)
+        cache["v"] = torch.zeros(shape, dtype=_kv_store_dtype(cfg), device=device)
+        if cfg.kv_cache_dtype == "int8":
+            cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+            cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+    return cache
+
+
+# ----------------------------------------------------------------------------
+# decode step (one new token against the cache)
+# ----------------------------------------------------------------------------
+
+def _update(dst: torch.Tensor, src: torch.Tensor, rows: torch.Tensor | None) -> None:
+    if rows is None:
+        dst.copy_(src)
+    else:
+        dst[rows] = src[rows].to(dst.dtype)
+
+
+def forward_decode(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor,
+                   pos, rows: torch.Tensor | None = None):
+    """tokens: (B, 1) int (or (B, 1, d) frames); pos: scalar or (B,).
+    Updates ``cache`` in place for the batch rows ``rows`` (all when None;
+    the others keep their state and KV) and returns (logits (B, 1, V),
+    cache)."""
+    _check_family(cfg, "forward_decode")
+    x = _embed(cfg, params, tokens)
+    posb = torch.as_tensor(pos, device=x.device).long().expand(x.shape[0])
+    gs = cfg.shared_attn_every if cfg.arch_type == "hybrid" else cfg.num_layers
+    for i in range(cfg.num_layers):
+        sh, sc = cache["ssm_h"][i], cache["ssm_conv"][i]
+        x, (h, conv) = M.mamba_block(cfg, _layer(params, i), x, (sh, sc))
+        _update(sh, h, rows)
+        _update(sc, conv, rows)
+        if cfg.arch_type == "hybrid" and (i + 1) % gs == 0:
+            site = i // gs
+            scales = ((cache["k_scale"][site], cache["v_scale"][site])
+                      if cfg.kv_cache_dtype == "int8" else (None, None))
+            x = L.block_decode(cfg, params["shared_attn"], x, posb, cache["k"][site],
+                               cache["v"][site], *scales, rows=rows)
+    return _unembed(cfg, params, x), cache
+
+
+# ----------------------------------------------------------------------------
+# prefill: full-seq compute that also fills the decode cache
+# ----------------------------------------------------------------------------
+
+def _attn_prefill(cfg: ModelConfig, lp: dict, h: torch.Tensor, positions: torch.Tensor):
+    """One attention block over the whole sequence: (h, (k, v))."""
+    hn = L.rmsnorm(lp["ln1"], h, cfg.rmsnorm_eps)
+    q, k, v = L._qkv(cfg, lp["attn"], hn)
+    if cfg.head_dim and cfg.rope_theta and not cfg.is_encoder:
+        q = L.rope(q, positions, cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
+    window = cfg.sliding_window if cfg.attn_variant == "swa" else 0
+    o = ops.flash_attention(q, k, v, causal=True, window=window)
+    h = h + L.unproject(o, lp["attn"]["wo"])
+    h = h + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], h, cfg.rmsnorm_eps))
+    return h, (k, v)
+
+
+def _to_cache_layout(cfg: ModelConfig, a: torch.Tensor, axis: int, s: int,
+                     cache_seq: int) -> torch.Tensor:
+    """Lay prompt K/V (seq length s along ``axis``) into the cache's seq
+    columns.  Plain cache: right-pad to cache_seq.  Ring (SWA) cache of w
+    columns: column j holds the latest prompt position p = j (mod w);
+    earlier positions are overwritten, matching decode-time wrapping."""
+    axis = axis % a.ndim
+    ring = (cfg.attn_variant == "swa" and cfg.sliding_window > 0
+            and cache_seq == cfg.sliding_window)
+    if not ring:
+        shape = list(a.shape)
+        shape[axis] = cache_seq - s
+        return torch.cat([a, a.new_zeros(shape)], dim=axis)
+    j = torch.arange(cache_seq, device=a.device)
+    p = (s - 1) - ((s - 1 - j) % cache_seq)                 # latest position per column
+    gathered = torch.index_select(a, axis, p.clamp(0, s - 1))
+    mask_shape = [1] * a.ndim
+    mask_shape[axis] = cache_seq
+    return torch.where((p >= 0).reshape(mask_shape), gathered, gathered.new_zeros(()))
+
+
+def forward_prefill(cfg: ModelConfig, params: dict, inputs: torch.Tensor, max_seq: int):
+    """Process the prompt and return (logits (B, S, V), filled cache), the
+    cache as ``init_decode_cache`` lays it out (sized to ``max_seq``;
+    prompt K/V occupy its first S columns, or the ring's), in the
+    activations' type: the caller casts it into its own cache."""
+    _check_family(cfg, "forward_prefill")
+    x = _embed(cfg, params, inputs)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)[None, :]
+    gs = cfg.shared_attn_every if cfg.arch_type == "hybrid" else cfg.num_layers
+    hs, convs, ks, vs = [], [], [], []
+    for i in range(cfg.num_layers):
+        x, (h, conv) = M.mamba_block(cfg, _layer(params, i), x)
+        hs.append(h)
+        convs.append(conv)
+        if cfg.arch_type == "hybrid" and (i + 1) % gs == 0:
+            x, (k, v) = _attn_prefill(cfg, params["shared_attn"], x, positions)
+            ks.append(k)
+            vs.append(v)
+    cache = {"ssm_h": torch.stack(hs), "ssm_conv": torch.stack(convs)}
+    if cfg.arch_type == "hybrid":
+        cache_seq = kv_cache_seq(cfg, max_seq)
+        k, v = torch.stack(ks), torch.stack(vs)              # (sites, B, S, nkv, hd)
+        if cfg.kv_cache_dtype == "int8":
+            (k, ks_), (v, vs_) = L.quantize_kv(k), L.quantize_kv(v)
+            cache["k_scale"] = _to_cache_layout(cfg, ks_, -2, s, cache_seq)
+            cache["v_scale"] = _to_cache_layout(cfg, vs_, -2, s, cache_seq)
+        cache["k"] = _to_cache_layout(cfg, k, -3, s, cache_seq)
+        cache["v"] = _to_cache_layout(cfg, v, -3, s, cache_seq)
+    return _unembed(cfg, params, x), cache

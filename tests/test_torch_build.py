@@ -14,6 +14,9 @@ def test_library_path_is_keyed_by_sources_and_flags():
     assert a.parent == build.BUILD_DIR and a.suffix == ".so"
     assert a.name.startswith("paged_attention-")
     assert a != build.library_path("flash_attention")
+    m = build.library_path("mamba_scan")
+    assert m.name.startswith("mamba_scan-") and m not in (a, build.library_path("flash_attention"))
+    assert set(build.ENTRY_POINTS) == {p.stem for p in build.CSRC.glob("*.cu")}
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
 
 
@@ -25,7 +28,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("rc,match", [(-1, "dtype"), (-2, "head_dim"), (-3, "grouping"),
-                                      (-4, "shape")])
+                                      (-4, "shape"), (-5, "state size")])
 def test_argument_errors_raise(rc, match):
     with pytest.raises(ValueError, match=match):
         build.check(rc, "paged_attention")

@@ -29,7 +29,8 @@ def _modules():
 
 def test_importing_the_port_loads_no_jax():
     mods = list(_modules())
-    assert "repro_torch.kernels.paged_attention" in mods
+    assert {"repro_torch.kernels.paged_attention", "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.mamba_scan", "repro_torch.models.mamba"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -16,6 +16,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.paged_attention import paged_attention as pallas_paged
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import mamba_scan as tms
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import ref as tref
@@ -182,12 +183,15 @@ def test_decode_attention_matches_jax():
 def test_backend_dispatch_on_cpu():
     q = torch.zeros(1, 4, 2, 32)
     assert ops.get_backend() == "auto"
-    before = (tpa.launches.value, tfa.launches.value)
+    before = (tpa.launches.value, tfa.launches.value, tms.launches.value)
     ops.flash_attention(q, q, q)            # auto on a CPU tensor: plain version
     ops.set_backend("cuda")
     try:
         with pytest.raises(RuntimeError, match="backend 'cuda'"):
             ops.flash_attention(q, q, q)
+        with pytest.raises(RuntimeError, match="backend 'cuda'"):
+            ops.mamba1_scan(q[0], q[0], torch.zeros(32, 1), q[0, :, :, :1], q[0, :, :, :1],
+                            torch.zeros(32))
         with pytest.raises(RuntimeError, match="backend 'cuda'"):
             ops.paged_attention(q[:, 0], torch.zeros(2, 4, 2, 32), torch.zeros(2, 4, 2, 32),
                                 torch.zeros(1, 1, dtype=torch.int32),
@@ -197,4 +201,6 @@ def test_backend_dispatch_on_cpu():
     with pytest.raises(ValueError):
         ops.set_backend("pallas")
     # plain versions on the CPU are no kernel launches
-    assert (tpa.launches.value, tfa.launches.value) == before
+    ops.mamba1_scan(q[0], q[0], torch.zeros(32, 1), q[0, :, :, :1], q[0, :, :, :1],
+                    torch.zeros(32))
+    assert (tpa.launches.value, tfa.launches.value, tms.launches.value) == before

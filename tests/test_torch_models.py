@@ -120,7 +120,8 @@ def test_quantize_kv_matches_jax():
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-7, atol=0)
 
 
-@pytest.mark.parametrize("arch,smoke", [("qwen2_5_14b", True), ("internlm2_1_8b", True)])
+@pytest.mark.parametrize("arch,smoke", [("qwen2_5_14b", True), ("internlm2_1_8b", True),
+                                        ("falcon_mamba_7b", True), ("zamba2_2_7b", True)])
 def test_params_round_trip_and_layout(arch, smoke):
     """JAX params carried across are bit-identical (bf16 included), and
     the port's own init builds the same tree of shapes and dtypes."""
