@@ -8,11 +8,16 @@ Phases, each printing one JSON line with its wall time:
                 compute capability, which must be (9, 0);
   2. build    — the three CUDA kernels built from
                 ``src/repro_torch/kernels/csrc`` for sm_90a (one nvcc per
-                source, started together);
+                source, started together), with each kernel's registers and
+                spills from ``-Xptxas -v`` (a spill fails the run);
   3. kernels  — each kernel held against its plain PyTorch version on
                 seeded inputs at the serving path's shapes and at full
-                width, timed with CUDA events beside the plain version and
-                one PyTorch library call (a yardstick the port never uses);
+                width (flash cases name their route, tensor-core or
+                CUDA-core; paged cases their split), timed as device time
+                with CUDA events fenced by a device-side sleep (``Timer``)
+                beside the plain version and one PyTorch library call (a
+                yardstick the port never uses); the sub-0.05 ms cases are
+                also read from the profiler's kernel events;
   4. qwen_omni — the Thinker -> Talker -> DiT-vocoder pipeline served
                 through the port's threaded Orchestrator: two greedy runs,
                 backend "cuda" and backend "ref", whose Thinker and Talker
@@ -41,6 +46,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -78,30 +85,90 @@ def fail(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 class Timer:
-    """Mean device time of ``fn`` over ``iters`` calls with CUDA events,
-    after warm-up, each call preceded by a write of 256 MB so that it
-    finds the 50 MB L2 cache cold, as a layer's decode step does."""
+    """Device time of ``fn`` alone, with CUDA events: the median over
+    ``iters`` calls after warm-up.  Each call is preceded by a write of
+    256 MB, so that it finds the 50 MB L2 cache cold as a layer's decode
+    step does, and then by a device-side sleep (``torch.cuda._sleep``)
+    three times as long as the host took to enqueue ``fn`` in warm-up,
+    plus 200 us.  The start event is recorded after the sleep, so the device
+    reaches it only once the call's kernels are queued behind it: the
+    interval holds the device time of every kernel ``fn`` launches and
+    none of the wrapper's Python.  (Where ``fn`` queues more launches than
+    the device's queue holds, as the plain scans do, the interval also
+    holds the host's gaps.)"""
+
+    MAX_SLEEP_US = 500_000
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+        self.cycles_per_us = self._calibrate()
+
+    def _calibrate(self) -> float:
+        torch = self.torch
+        cycles = 20_000_000
+        rate = 0.0
+        for _ in range(2):                # the first call warms the sleep kernel up
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            torch.cuda._sleep(cycles)
+            e.record()
+            torch.cuda.synchronize()
+            rate = cycles / (s.elapsed_time(e) * 1e3)
+        return rate
 
     def __call__(self, fn, iters: int = 10, warmup: int = 3) -> float:
         torch = self.torch
-        for _ in range(warmup):
+        enqueue = []
+        for _ in range(max(warmup, 2)):
+            t = time.perf_counter()
             fn()
-        torch.cuda.synchronize()
-        total = 0.0
+            enqueue.append(time.perf_counter() - t)
+            torch.cuda.synchronize()
+        sleep_us = min(3e6 * max(enqueue[1:]) + 200.0, self.MAX_SLEEP_US)
+        cycles = int(self.cycles_per_us * sleep_us)
+        times = []
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(cycles)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
             fn()
             e.record()
             torch.cuda.synchronize()
-            total += s.elapsed_time(e)
-        return total / iters
+            times.append(s.elapsed_time(e))
+        return statistics.median(times)
+
+    def profiled(self, fn, iters: int = 20) -> float:
+        """Device time per call of ``fn`` from torch.profiler's events of
+        the port's kernels (``PORT_KERNELS``; the L2 flush before each
+        call is left out): the cross-check of the event timer.  Each
+        kernel counts at its median duration times its launches per call,
+        so one slow launch does not move it."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        runs = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA and any(k in ev.name for k in PORT_KERNELS):
+                runs.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
+        return sum(statistics.median(d) * len(d) / iters for d in runs.values()) / 1e3
+
+
+# names of the port's kernels in the profiler's events
+PORT_KERNELS = ("paged_attention", "flash_attention", "mamba1_scan")
+# the profiler's own device events, left out of every device time
+PROFILER_OVERHEAD = ("Activity Buffer Request", "Runtime Triggered Module Loading",
+                     "Lazy Function Loading")
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -126,7 +193,7 @@ def compare(got, want, dtype: str, rows=None):
 # ---------------------------------------------------------------------------
 
 def paged_case(torch, F, timer, name, *, B, nq, nkv, hd, page, pp, dtype,
-               window=0, quant=False, seed=0):
+               window=0, quant=False, seed=0, profile=False):
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
     dt = getattr(torch, dtype)
@@ -154,10 +221,14 @@ def paged_case(torch, F, timer, name, *, B, nq, nkv, hd, page, pp, dtype,
     kw = dict(window=window, k_scale_pages=ks, v_scale_pages=vs)
     got = pa.paged_attention(q, kp, vp, bt, sl, **kw)
     want = ref.paged_attention(q, kp, vp, bt, sl, **kw)
+    split = ref.paged_attention_split(q, kp, vp, bt, sl, partition=pa.PARTITION, **kw)
     torch.cuda.synchronize()
     live = (sl > 0).nonzero()[:, 0]
     err, ok = compare(got, want, dtype, rows=live)
-    ok = ok and bool(got.float().isfinite().all())   # seq_len 0 rows: finite only
+    err_split, ok_split = compare(got, split, dtype)
+    # seq_len 0 rows: zeros (the plain version averages V there)
+    ok = ok and ok_split and bool((got[sl == 0].float() == 0).all())
+    plan = pa.plan(B, nq, nkv, hd, page, pp)
 
     def library():
         # SDPA over the pages gathered by the block table, gather included
@@ -178,6 +249,8 @@ def paged_case(torch, F, timer, name, *, B, nq, nkv, hd, page, pp, dtype,
     ms = timer(lambda: pa.paged_attention(q, kp, vp, bt, sl, **kw))
     plain_ms = timer(lambda: ref.paged_attention(q, kp, vp, bt, sl, **kw))
     library_ms = timer(library)
+    profiler_ms = (timer.profiled(lambda: pa.paged_attention(q, kp, vp, bt, sl, **kw))
+                   if profile else None)
     # bytes the function must move: q, out, the visible tokens' K/V (and
     # scales), the block-table entries and lengths it reads
     sl_l = sl.long()
@@ -192,12 +265,16 @@ def paged_case(torch, F, timer, name, *, B, nq, nkv, hd, page, pp, dtype,
     b_ms, b_by = bound(nbytes, flops, dtype)
     return {"case": name, "B": B, "nq": nq, "nkv": nkv, "hd": hd, "page": page, "pp": pp,
             "dtype": dtype, "kv": "int8" if quant else dtype, "window": window,
-            "max_abs_err": err, "ok": ok, "ms": ms, "plain_ms": plain_ms,
+            "partition": pa.PARTITION, "splits": plan.splits,
+            "ctas": plan.grid[0] * plan.grid[1] * plan.grid[2],
+            "kernel_launches_per_call": plan.kernel_launches,
+            "max_abs_err": err, "max_abs_err_vs_split_plain": err_split, "ok": ok, "ms": ms,
+            "profiler_ms": profiler_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def flash_case(torch, F, timer, name, *, B, sq, sk, nq, nkv, hd, dtype,
-               causal=False, window=0, seed=0):
+               causal=False, window=0, seed=0, profile=False):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     dt = getattr(torch, dtype)
@@ -227,14 +304,16 @@ def flash_case(torch, F, timer, name, *, B, sq, sk, nq, nkv, hd, dtype,
     ms = timer(lambda: fa.flash_attention(q, k, v, **kw))
     plain_ms = timer(lambda: ref.flash_attention(q, k, v, **kw))
     library_ms = timer(library)
+    profiler_ms = timer.profiled(lambda: fa.flash_attention(q, k, v, **kw)) if profile else None
     pairs = int(mask.sum())
     nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
     flops = 4.0 * B * nq * hd * pairs
     b_ms, b_by = bound(nbytes, flops, dtype)
-    return {"case": name, "B": B, "sq": sq, "sk": sk, "nq": nq, "nkv": nkv, "hd": hd,
-            "dtype": dtype, "causal": causal, "window": window,
-            "max_abs_err": err, "ok": ok, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+    route = fa.route(dt, hd)
+    return {"case": f"{name} [{route}]", "route": route, "B": B, "sq": sq, "sk": sk, "nq": nq,
+            "nkv": nkv, "hd": hd, "dtype": dtype, "causal": causal, "window": window,
+            "max_abs_err": err, "ok": ok, "ms": ms, "profiler_ms": profiler_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
 # per (t, channel, state): dt * A, exp, * h, dt * B, * x, +, * C and the
@@ -244,7 +323,7 @@ SCAN_FLOPS_PER_CHANNEL = 2
 SCAN_LIBRARY = "no single PyTorch call computes a selective scan"
 
 
-def mamba_case(torch, timer, name, *, Bt, S, di, n, dtype, h0, seed=0):
+def mamba_case(torch, timer, name, *, Bt, S, di, n, dtype, h0, seed=0, profile=False):
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import ref
     dt_ = getattr(torch, dtype)
@@ -265,6 +344,7 @@ def mamba_case(torch, timer, name, *, Bt, S, di, n, dtype, h0, seed=0):
     err_y, ok_y = compare(y, want_y, dtype)
     err_h, ok_h = compare(hl, want_h, "float32")
     ms_ = timer(lambda: ms.mamba1_scan(x, dt, A, B, C, D, h))
+    profiler_ms = timer.profiled(lambda: ms.mamba1_scan(x, dt, A, B, C, D, h)) if profile else None
     plain_ms = timer(lambda: ref.mamba1_scan(x, dt, A, B, C, D, h), iters=3, warmup=1)
     elt = torch.finfo(dt_).bits // 8
     nbytes = (3 * Bt * S * di * elt + 2 * Bt * S * n * elt + 4 * (di * n + di)
@@ -273,7 +353,8 @@ def mamba_case(torch, timer, name, *, Bt, S, di, n, dtype, h0, seed=0):
     b_ms, b_by = bound(nbytes, flops, "float32")     # the arithmetic is f32 for both types
     return {"case": name, "Bt": Bt, "S": S, "di": di, "n": n, "dtype": dtype, "h0": h0,
             "max_abs_err": max(err_y, err_h), "max_abs_err_y": err_y, "max_abs_err_h": err_h,
-            "ok": ok_y and ok_h, "ms": ms_, "plain_ms": plain_ms, "library_ms": None,
+            "ok": ok_y and ok_h, "ms": ms_, "profiler_ms": profiler_ms,
+            "plain_ms": plain_ms, "library_ms": None,
             "library": SCAN_LIBRARY, "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -303,9 +384,9 @@ def phase_kernels(torch, F):
     timer = Timer(torch)
     paged = [
         paged_case(torch, F, timer, "qwen_omni decode (slice)", B=8, nq=4, nkv=2, hd=32,
-                   page=16, pp=16, dtype="float32"),
+                   page=16, pp=16, dtype="float32", profile=True),
         paged_case(torch, F, timer, "qwen2.5-14b decode bf16", B=8, nq=40, nkv=8, hd=128,
-                   page=16, pp=128, dtype="bfloat16", seed=1),
+                   page=16, pp=128, dtype="bfloat16", seed=1, profile=True),
         paged_case(torch, F, timer, "qwen2.5-14b decode f32", B=8, nq=40, nkv=8, hd=128,
                    page=16, pp=128, dtype="float32", seed=2),
         paged_case(torch, F, timer, "int8 pool", B=8, nq=40, nkv=8, hd=128, page=16,
@@ -315,7 +396,7 @@ def phase_kernels(torch, F):
     ]
     flash = [
         flash_case(torch, F, timer, "vocoder self-attn", B=8, sq=32, sk=32, nq=4, nkv=4,
-                   hd=32, dtype="float32"),
+                   hd=32, dtype="float32", profile=True),
         flash_case(torch, F, timer, "vocoder cross-attn", B=8, sq=32, sk=16, nq=4, nkv=4,
                    hd=32, dtype="float32", seed=1),
         flash_case(torch, F, timer, "vocoder cross-attn, last chunk", B=8, sq=16, sk=8,
@@ -334,9 +415,14 @@ def phase_kernels(torch, F):
     flash.append(flash_case(torch, F, timer, "zamba2 prefill f32 causal hd 80", B=1, sq=512,
                             sk=512, nq=32, nkv=32, hd=80, dtype="float32", causal=True,
                             seed=s + 1))
+    flash.append(flash_case(torch, F, timer, "hd 64 bf16 causal", B=2, sq=1000, sk=1000,
+                            nq=16, nkv=16, hd=64, dtype="bfloat16", causal=True, seed=s + 2))
+    flash.append(flash_case(torch, F, timer, "zamba2 shape bf16 causal hd 80", B=1, sq=512,
+                            sk=512, nq=32, nkv=32, hd=80, dtype="bfloat16", causal=True,
+                            seed=s + 3))
     scan = [
         mamba_case(torch, timer, "falcon-mamba decode bf16", Bt=8, S=1, di=8192, n=16,
-                   dtype="bfloat16", h0=True),
+                   dtype="bfloat16", h0=True, profile=True),
         mamba_case(torch, timer, "falcon-mamba prefill f32 (ragged S)", Bt=1, S=1000,
                    di=8192, n=16, dtype="float32", h0=False, seed=1),
         mamba_case(torch, timer, "smoke f32", Bt=1, S=8, di=512, n=8, dtype="float32",
@@ -826,8 +912,6 @@ def device_profile(torch, fn):
     loading events are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    overhead = ("Activity Buffer Request", "Runtime Triggered Module Loading",
-                "Lazy Function Loading")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         result = fn()
@@ -835,13 +919,17 @@ def device_profile(torch, fn):
         wall = time.perf_counter() - t
     per = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA and e.name not in overhead:
+        if e.device_type == DeviceType.CUDA and e.name not in PROFILER_OVERHEAD:
             per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
     device_s = sum(per.values()) / 1e6
     top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+    # device time of each kernel of the port, all its launches (split and
+    # combine kernels of paged attention together)
+    ours = {k: sum(us for n, us in per.items() if k in n) / 1e3 for k in PORT_KERNELS}
     return result, {"wall_ms": 1e3 * wall, "device_ms": 1e3 * device_s,
                     "device_busy_share": device_s / wall if device_s else None,
-                    "top_device_ms": {k[:60]: us / 1e3 for k, us in top}}
+                    "top_device_ms": {k[:60]: us / 1e3 for k, us in top},
+                    "port_kernels_device_ms": ours}
 
 
 def _leaves(tree):
@@ -865,6 +953,45 @@ KERNEL_META = {
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan.py:58"},
 }
+
+
+# a kernel's name and template arguments inside a mangled name
+KERNEL_NAME = re.compile(r"((?:flash_attention|paged_attention)_[a-z]+_kernel|mamba1_scan_kernel)"
+                         r"(I.*?EE)?")
+
+
+def kernel_name(text: str):
+    m = KERNEL_NAME.search(text)
+    return "".join(g or "" for g in m.groups()) if m else None
+
+
+def ptxas_entries(log: str):
+    """Registers and spill bytes of each kernel in nvcc's ``-Xptxas -v``
+    output, by the kernel's name and template arguments."""
+    entries, cur = [], None
+    for line in log.splitlines():
+        hit = re.search(r"Compiling entry function '(.*?)'", line)
+        if hit:
+            cur = {"kernel": kernel_name(hit.group(1)) or hit.group(1), "registers": None,
+                   "spill_bytes": 0}
+            entries.append(cur)
+        elif cur is not None and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes spill", line)
+            cur["spill_bytes"] = sum(int(n) for n in nums)
+        elif cur is not None and "Used " in line:
+            cur["registers"] = int(line.split("Used ")[1].split()[0])
+    return entries
+
+
+def ptxas_advisories(log: str):
+    """ptxas's performance advisories (such as C7520, wgmma serialized),
+    each with the kernel it names."""
+    out = []
+    for line in log.splitlines():
+        if "Potential Performance Loss" in line:
+            text = line.split("Potential Performance Loss:")[1].split(" in the function")[0]
+            out.append({"kernel": kernel_name(line), "advisory": text.strip()})
+    return out
 
 
 def library_of(name: str) -> str:
@@ -907,13 +1034,15 @@ def main() -> int:
 
     t = time.perf_counter()
     built = build.build(sorted({library_of(k) for k in KERNEL_META}))
-    regs = {}
-    for name, info in built.items():
-        regs[name] = sorted({int(x.split("Used ")[1].split()[0])
-                             for x in str(info["log"]).splitlines() if "Used " in x})
-    emit({"phase": "build", "seconds": time.perf_counter() - t,
+    entries = {k: ptxas_entries(str(v["log"])) for k, v in built.items()}
+    emit({"phase": "build", "seconds": time.perf_counter() - t, "flags": build.NVCC_FLAGS,
           "kernels": {k: {"seconds": v["seconds"], "cached": v["cached"],
-                          "registers": regs[k]} for k, v in built.items()}})
+                          "entries": entries[k],
+                          "advisories": ptxas_advisories(str(v["log"]))}
+                      for k, v in built.items()}})
+    spills = [e for es in entries.values() for e in es if e["spill_bytes"]]
+    if spills:
+        fail(f"kernels spill registers: {spills}")
 
     t = time.perf_counter()
     cases = phase_kernels(torch, F)

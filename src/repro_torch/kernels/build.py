@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 ENTRY_POINTS = {
     "paged_attention": ("paged_attention_launch",
-                        [_P] * 8 + [_I] * 9 + [_F, _P]),
+                        [_P] * 9 + [_I] * 11 + [_F, _P]),
     "flash_attention": ("flash_attention_launch",
                         [_P] * 4 + [_I] * 6 + [_L] * 9 + [_I] * 3 + [_F, _P]),
     "mamba_scan": ("mamba1_scan_launch",
@@ -42,7 +42,9 @@ ENTRY_POINTS = {
 
 _ARG_ERRORS = {-1: "unsupported dtype combination", -2: "unsupported head_dim",
                -3: "unsupported head grouping", -4: "empty or invalid shape",
-               -5: "unsupported state size"}
+               -5: "unsupported state size",
+               -6: "TMA descriptor refused: base address and strides must be "
+                   "multiples of 16 bytes"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}       # guarded-by: _lock

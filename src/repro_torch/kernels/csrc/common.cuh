@@ -24,6 +24,7 @@ enum ArgError : int {
   kBadGroup = -3,
   kBadShape = -4,
   kBadState = -5,
+  kBadTensorMap = -6,  // a TMA descriptor was refused (alignment, strides)
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }

@@ -1,12 +1,26 @@
 """Full-sequence attention: wrapper around ``csrc/flash_attention.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py:
-flash_attention``.  The CUDA kernel's header says what bounds it on the
-card and how its design answers that.  Unlike the Pallas version it
-takes any Sq and Sk (ragged tails are masked in the kernel) and reads
-q, k and v through their strides in the (B, S, H, hd) layout.  On a CUDA
-tensor this wrapper launches the kernel (or raises); on a CPU tensor it
-runs the plain version, ``ref.flash_attention``.
+flash_attention``.  The CUDA source holds two kernels, and the route is
+chosen here, explicitly, by type and head_dim (``route``):
+
+- ``"tensor-core"``: bf16 at head_dim 64 and 128.  wgmma tiles fed by TMA
+  loads; q, k and v are read through TMA descriptors, which need the base
+  address and the head, sequence and batch strides to be multiples of 16
+  bytes (``tma_ok``).  A view that fails this is copied into a fresh
+  contiguous tensor first: a copy, not another kernel.
+- ``"cuda-core"``: f32 at any supported head_dim (f32 parity at 2e-5
+  rules out TF32) and bf16 at head_dim 32 and 80 (80-element rows fit no
+  TMA swizzle span; 32 is too narrow for wgmma).  Reads through strides;
+  only head_dim must be contiguous.
+
+The source's header says what bounds each on the card and how its design
+answers that.  Unlike the Pallas version both take any Sq and Sk (ragged
+tails are masked in the kernel).  On a CUDA tensor this wrapper launches
+the routed kernel or raises: a failed build, a refused TMA descriptor or
+a failed launch is an error, never a quiet switch to the other kernel or
+to the plain version.  On a CPU tensor it runs the plain version,
+``ref.flash_attention``.
 """
 from __future__ import annotations
 
@@ -19,12 +33,30 @@ launches = build.LaunchCounter()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128)
+TENSOR_CORE_HEAD_DIMS = (64, 128)
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel of ``csrc/flash_attention.cu`` a call takes."""
+    if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS:
+        return "tensor-core"
+    return "cuda-core"
+
+
+def tma_ok(t: torch.Tensor) -> bool:
+    """Whether a (B, S, H, hd) tensor can be described to TMA as it is:
+    head_dim contiguous, base address and the other strides multiples of
+    16 bytes."""
+    if t.stride(-1) != 1:
+        return False
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s > 0 and s * es % 16 == 0 for s in t.stride()[:3])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B, Sq, nq, hd); k, v: (B, Sk, nkv, hd), all f32 or all bf16.
-    Returns (B, Sq, nq, hd) in q.dtype."""
+    Returns a contiguous (B, Sq, nq, hd) in q.dtype."""
     if not q.is_cuda:
         return ref.flash_attention(q, k, v, causal=causal, window=window)
     b, sq, nq, hd = q.shape
@@ -41,8 +73,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     if nq % nkv:
         raise ValueError(f"flash_attention: {nq} query heads over {nkv} kv heads")
-    # only head_dim has to be contiguous; the rest is read through strides
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    if route(q.dtype, hd) == "tensor-core":
+        # a copy is contiguous and starts on the allocator's aligned base
+        q, k, v = (t if tma_ok(t) else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
+    else:   # only head_dim has to be contiguous; the rest is read through strides
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty((b, sq, nq, hd), dtype=q.dtype, device=q.device)
     lib = build.load("flash_attention")
     with torch.cuda.device(q.device):

@@ -134,6 +134,64 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return out.reshape(b, nq, hd).to(q.dtype)
 
 
+def paged_attention_split(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, block_tables: torch.Tensor,
+                          seq_lens: torch.Tensor, *, partition: int, window: int = 0,
+                          scale: float | None = None,
+                          k_scale_pages: torch.Tensor | None = None,
+                          v_scale_pages: torch.Tensor | None = None) -> torch.Tensor:
+    """``paged_attention`` computed the way the split CUDA kernel does.
+
+    The tokens of each row are cut into partitions of ``partition``
+    tokens (a partition may start mid-page).  Each partition's visible
+    tokens give a partial (max m, sum l, unnormalised output acc); a
+    partition without one gives l = 0 and is left out; the partials are
+    merged in order by rescaling to their common max.  A row with no
+    visible token (seq_len 0) gives zeros, as the kernel does, where
+    ``paged_attention`` averages V.  Used by the tests and chip_smoke,
+    never by the serving path.
+    """
+    b, nq, hd = q.shape
+    _, page, nkv, _ = k_pages.shape
+    scale = scale if scale is not None else hd ** -0.5
+    bt = block_tables.long()
+    k = k_pages[bt].float()                       # (B, pp, page, nkv, hd)
+    v = v_pages[bt].float()
+    if k_scale_pages is not None:
+        k = k * k_scale_pages[bt].float()[..., None]
+    if v_scale_pages is not None:
+        v = v * v_scale_pages[bt].float()[..., None]
+    t = bt.shape[1] * page
+    splits = -(-t // partition)
+    pad = splits * partition - t
+    k = torch.nn.functional.pad(k.reshape(b, t, nkv, hd), (0, 0, 0, 0, 0, pad))
+    v = torch.nn.functional.pad(v.reshape(b, t, nkv, hd), (0, 0, 0, 0, 0, pad))
+    qg = q.reshape(b, nkv, nq // nkv, hd).float() * scale
+    s = torch.einsum("bkgh,btkh->bkgt", qg, k)
+    j = torch.arange(splits * partition, device=q.device)[None, :]
+    last = seq_lens.long().clamp(max=t)[:, None]
+    visible = j < last
+    if window > 0:
+        visible &= j > last - 1 - window
+    visible = visible[:, None, None, :]
+    s = torch.where(visible, s, float("-inf")).reshape(b, nkv, -1, splits, partition)
+    visible = visible.reshape(b, 1, 1, splits, partition)
+    m = s.amax(-1)                                               # (B, nkv, g, splits)
+    m_safe = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    p = torch.where(visible, torch.exp(s - m_safe[..., None]), torch.zeros_like(s))
+    l = p.sum(-1)
+    acc = torch.einsum("bkgsp,bspkh->bkgsh", p, v.reshape(b, splits, partition, nkv, hd))
+    used = l > 0
+    mm = torch.where(used, m, float("-inf")).amax(-1, keepdim=True)
+    mm = torch.where(torch.isinf(mm), torch.zeros_like(mm), mm)
+    w = torch.where(used, torch.exp(m - mm), torch.zeros_like(m))
+    total = (w * l).sum(-1)
+    out = (w[..., None] * acc).sum(-2)
+    out = torch.where(total[..., None] > 0, out / total.clamp(min=1e-30)[..., None],
+                      torch.zeros_like(out))
+    return out.reshape(b, nq, hd).to(q.dtype)
+
+
 def chunk_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
                     q_start, *, window: int = 0,
                     scale: float | None = None) -> torch.Tensor:

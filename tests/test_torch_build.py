@@ -28,7 +28,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("rc,match", [(-1, "dtype"), (-2, "head_dim"), (-3, "grouping"),
-                                      (-4, "shape"), (-5, "state size")])
+                                      (-4, "shape"), (-5, "state size"), (-6, "TMA")])
 def test_argument_errors_raise(rc, match):
     with pytest.raises(ValueError, match=match):
         build.check(rc, "paged_attention")

@@ -9,12 +9,14 @@ repository's conftest) with
 
 Tolerances are those of tests/test_kernels.py: 2e-5 for f32, 2e-2 for
 bf16 (for the scan, bf16 on y, which is stored in bf16; its state is
-f32).  Rows with seq_len 0 are compared for finiteness only: the kernel
-reads no page for them (see kernels/paged_attention.py).
+f32).  Rows with seq_len 0 come out of the paged kernel as zeros (it
+reads no page for them, see kernels/paged_attention.py); the plain
+version averages V there, so those rows are held to zeros instead.
 """
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import ops, ref
@@ -36,9 +38,15 @@ def _tol(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,sq,sk,nq,nkv,hd", [
     (2, 128, 128, 8, 2, 64), (8, 32, 16, 4, 4, 32), (1, 77, 200, 8, 1, 128),
-    (1, 70, 70, 4, 4, 80)])
-@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0), (False, 9)])
+    (1, 70, 70, 4, 4, 80), (1, 129, 129, 10, 2, 64), (2, 1000, 77, 10, 2, 128),
+    (1, 200, 77, 5, 1, 128), (1, 300, 300, 10, 2, 128)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0), (False, 9),
+                                           (True, 200), (False, 130)])
 def test_flash_kernel_matches_plain(cuda, b, sq, sk, nq, nkv, hd, causal, window, dtype):
+    """bf16 at hd 64/128 takes the tensor-core kernel, the rest the
+    CUDA-core one: ragged Sq/Sk (77, 129, 1000 x 77), Sq > Sk under
+    causal (rows at negative positions), windows across 128-key tiles,
+    GQA with g = 5."""
     q = torch.randn((b, sq, nq, hd), generator=cuda, device="cuda").to(dtype)
     k = torch.randn((b, sk, nkv, hd), generator=cuda, device="cuda").to(dtype)
     v = torch.randn((b, sk, nkv, hd), generator=cuda, device="cuda").to(dtype)
@@ -46,15 +54,54 @@ def test_flash_kernel_matches_plain(cuda, b, sq, sk, nq, nkv, hd, causal, window
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa.launches.value == n + 1
+    assert got.is_contiguous() and got.dtype == dtype
     want = ref.flash_attention(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
-def test_flash_kernel_reads_strided_inputs(cuda):
-    qkv = torch.randn((2, 40, 3, 4, 32), generator=cuda, device="cuda")
-    q, k, v = qkv.unbind(2)                      # non-contiguous (B, S, H, hd) views
+def _views(kind, gen, b, s, h, hd, dtype):
+    """q, k, v as non-contiguous (B, S, H, hd) views: columns of one qkv
+    tensor (strides multiples of 16 bytes), rows padded by 4 elements (a
+    head stride that is not), or starting one element in (base address
+    not 16-byte aligned)."""
+    if kind == "qkv":
+        qkv = torch.randn((b, s, 3, h, hd), generator=gen, device="cuda").to(dtype)
+        return qkv.unbind(2)
+    if kind == "padded":
+        return tuple(torch.randn((b, s, h, hd + 4), generator=gen, device="cuda")
+                     .to(dtype)[..., :hd] for _ in range(3))
+    flat = torch.randn(3 * b * s * h * hd + 1, generator=gen, device="cuda").to(dtype)
+    return tuple(flat[1 + i * b * s * h * hd:1 + (i + 1) * b * s * h * hd].view(b, s, h, hd)
+                 for i in range(3))
+
+
+@pytest.mark.parametrize("kind,dtype,hd", [("qkv", torch.float32, 32),
+                                           ("qkv", torch.bfloat16, 128),
+                                           ("padded", torch.bfloat16, 128),
+                                           ("padded", torch.bfloat16, 64),
+                                           ("offset", torch.bfloat16, 64),
+                                           ("padded", torch.float32, 80)])
+def test_flash_kernel_reads_strided_inputs(cuda, kind, dtype, hd):
+    q, k, v = _views(kind, cuda, 2, 140, 4, hd, dtype)
+    if dtype == torch.bfloat16:
+        assert fa.tma_ok(q) == (kind == "qkv")
     got = fa.flash_attention(q, k, v, causal=True)
-    torch.testing.assert_close(got, ref.flash_attention(q, k, v, causal=True), **_tol(None))
+    torch.testing.assert_close(got.float(), ref.flash_attention(q, k, v, causal=True).float(),
+                               **_tol(dtype))
+
+
+def test_bf16_flash_failure_raises_without_fallback(cuda, monkeypatch):
+    """A refused TMA descriptor is an error: no other kernel, no plain
+    version, no launch counted."""
+    class RefusingLib:
+        def flash_attention_launch(self, *args):
+            return -6
+    monkeypatch.setattr(build, "load", lambda name: RefusingLib())
+    q = torch.randn((1, 64, 4, 128), generator=cuda, device="cuda").bfloat16()
+    n = fa.launches.value
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention(q, q, q)
+    assert fa.launches.value == n
 
 
 @pytest.mark.parametrize("dtype,quant", [(torch.float32, False), (torch.bfloat16, False),
@@ -80,8 +127,62 @@ def test_paged_kernel_matches_plain(cuda, b, nq, nkv, hd, page, pp, window, dtyp
     got = ops.paged_attention(q, kp, vp, bt, sl, backend="cuda", **kw)
     want = ref.paged_attention(q, kp, vp, bt, sl, **kw)
     torch.cuda.synchronize()
-    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got[0].float(), torch.zeros_like(got[0].float()))
     torch.testing.assert_close(got[1:].float(), want[1:].float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype,quant", [(torch.float32, False), (torch.bfloat16, False),
+                                         (torch.bfloat16, True)])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("page,pp,window", [(16, 24, 0), (16, 24, 40), (48, 8, 0),
+                                           (16, 40, 100), (16, 24, 7)])
+def test_paged_kernel_split_edges(cuda, dtype, quant, hd, page, pp, window):
+    """seq_len 0, 1, exactly a partition, one past it, the full row, and
+    rows whose window starts inside a partition or crosses its border;
+    pages of 48 tokens make the second partition start mid-page.  Held
+    against the plain version and the plain split version."""
+    b, nq, nkv = 7, 10, 2
+    partition = pa.PARTITION
+    P = b * pp + 3
+    full = page * pp
+    q = torch.randn((b, nq, hd), generator=cuda, device="cuda").to(dtype)
+    kf = torch.randn((P, page, nkv, hd), generator=cuda, device="cuda")
+    vf = torch.randn((P, page, nkv, hd), generator=cuda, device="cuda")
+    if quant:
+        ks, vs = kf.abs().amax(-1) / 127 + 1e-8, vf.abs().amax(-1) / 127 + 1e-8
+        kp = torch.round(kf / ks[..., None]).to(torch.int8)
+        vp = torch.round(vf / vs[..., None]).to(torch.int8)
+    else:
+        kp, vp, ks, vs = kf.to(dtype), vf.to(dtype), None, None
+    bt = torch.randperm(P, generator=cuda, device="cuda")[:b * pp].reshape(b, pp).int()
+    sl = torch.tensor([0, 1, partition, partition + 1, full, full - 5, partition + 37],
+                      device="cuda").clamp(max=full).int()
+    kw = dict(window=window, k_scale_pages=ks, v_scale_pages=vs)
+    plan = pa.plan(b, nq, nkv, hd, page, pp)
+    assert plan.splits == -(-full // partition) > 1
+    got = pa.paged_attention(q, kp, vp, bt, sl, **kw)
+    want = ref.paged_attention(q, kp, vp, bt, sl, **kw)
+    split = ref.paged_attention_split(q, kp, vp, bt, sl, partition=partition, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].float(), torch.zeros_like(got[0].float()))
+    torch.testing.assert_close(got[1:].float(), want[1:].float(), **_tol(dtype))
+    torch.testing.assert_close(got.float(), split.float(), **_tol(dtype))
+
+
+def test_paged_kernel_makes_no_host_sync(cuda):
+    """The wrapper plans from shapes: no read of seq_lens on the host."""
+    q = torch.randn((8, 40, 128), generator=cuda, device="cuda").bfloat16()
+    kp = torch.randn((8 * 128, 16, 8, 128), generator=cuda, device="cuda").bfloat16()
+    bt = torch.arange(8 * 128, device="cuda").reshape(8, 128).int()
+    sl = torch.full((8,), 2048, device="cuda").int()
+    pa.paged_attention(q, kp, kp, bt, sl)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pa.paged_attention(q, kp, kp, bt, sl)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert pa.plan(8, 40, 8, 128, 16, 128).grid == (16, 8, 8)
 
 
 def _scan_inputs(gen, bt, s, di, n, dtype, strided):
