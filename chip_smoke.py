@@ -12,8 +12,10 @@ Phases, each printing one JSON line with its wall time:
                 spills from ``-Xptxas -v`` (a spill fails the run);
   3. kernels  — each kernel held against its plain PyTorch version on
                 seeded inputs at the serving path's shapes and at full
-                width (flash cases name their route, tensor-core or
-                CUDA-core; paged cases their split), timed as device time
+                width (flash cases name their route, wgmma or mma; paged
+                cases their split; scan cases their chunks, with the edges
+                of a chunk and a continuation split on and off a chunk
+                boundary), timed as device time
                 with CUDA events fenced by a device-side sleep (``Timer``)
                 beside the plain version and one PyTorch library call (a
                 yardstick the port never uses); the sub-0.05 ms cases are
@@ -30,11 +32,15 @@ Phases, each printing one JSON line with its wall time:
                 Mamba1 layers) served the same way through StateRunner
                 (8 requests of 128-1536 tokens, 32 greedy tokens, scan
                 launches counted), then one 256-token f32 prefill and one
-                batched bf16 decode step with backend "cuda" against "ref";
+                batched bf16 decode step with backend "cuda" against "ref",
+                and one whole-prompt prefill (the longest prompt) and three
+                decode steps under the profiler;
   7. hybrid   — Zamba2-2.7B at its published width and depth (54 Mamba2
                 layers, the shared attention after every sixth) served
                 the same way (4 requests, 16 greedy tokens, flash launches
-                counted).
+                counted), then one whole-prompt prefill (the shortest
+                prompt: the plain Mamba2 scan launches per step) under the
+                profiler.
 Then the ``{"kernels": [...]}`` line (launch counts of the runs that use
 each kernel, each counted from 0) and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero before the last line.  Without a
@@ -57,9 +63,11 @@ SRC = os.path.join(ROOT, "src")
 
 # tolerances of tests/test_kernels.py: f32 2e-5, bf16 2e-2 (rtol = atol)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).  The mma
+# flash route computes f32 as three TF32 products ("tf32x3"): its bound
+# counts three times the operations at the TF32 rate
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 # logits of one full-width bf16 decode step, kernel vs plain attention:
 # the two sum in different orders in f32 and round to bf16 in each of the
 # 48 layers, so they are held to 5% of the logits' largest magnitude
@@ -147,6 +155,12 @@ class Timer:
         call is left out): the cross-check of the event timer.  Each
         kernel counts at its median duration times its launches per call,
         so one slow launch does not move it."""
+        return sum(self.profiled_by_kernel(fn, iters).values())
+
+    def profiled_by_kernel(self, fn, iters: int = 20) -> dict:
+        """``profiled`` per __global__ of the port's kernels: {name: device
+        ms per call} (the scan's passes, paged attention's split and
+        combine kernels apart)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         torch = self.torch
@@ -159,13 +173,20 @@ class Timer:
             torch.cuda.synchronize()
         runs = {}
         for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA and any(k in ev.name for k in PORT_KERNELS):
+            if ev.device_type == DeviceType.CUDA and any(
+                    k in ev.name for k in PORT_KERNELS.values()):
                 runs.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
-        return sum(statistics.median(d) * len(d) / iters for d in runs.values()) / 1e3
+        by_kernel = {}
+        for name, d in runs.items():
+            key = kernel_name(name) or name[:60]
+            by_kernel[key] = by_kernel.get(key, 0.0) + statistics.median(d) * len(d) / iters / 1e3
+        return by_kernel
 
 
-# names of the port's kernels in the profiler's events
-PORT_KERNELS = ("paged_attention", "flash_attention", "mamba1_scan")
+# each kernel of the port by the prefix of its __global__ functions'
+# names in the profiler's events (the scan's three passes are mamba1_*)
+PORT_KERNELS = {"paged_attention": "paged_attention_", "flash_attention": "flash_attention_",
+                "mamba1_scan": "mamba1_"}
 # the profiler's own device events, left out of every device time
 PROFILER_OVERHEAD = ("Activity Buffer Request", "Runtime Triggered Module Loading",
                      "Lazy Function Loading")
@@ -308,12 +329,20 @@ def flash_case(torch, F, timer, name, *, B, sq, sk, nq, nkv, hd, dtype,
     pairs = int(mask.sum())
     nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
     flops = 4.0 * B * nq * hd * pairs
-    b_ms, b_by = bound(nbytes, flops, dtype)
     route = fa.route(dt, hd)
+    # f32 runs as three TF32 products; the CUDA cores' f32 bound stands beside it
+    b_ms, b_by = bound(nbytes, flops, "tf32x3" if dtype == "float32" else dtype)
+    extra = {}
+    if dtype == "float32":
+        extra["bound_ms_f32_cuda_cores"] = bound(nbytes, flops, "float32")[0]
+        err_x3, ok_x3 = compare(got, ref.flash_attention_tf32x3(q, k, v, **kw), dtype)
+        extra["max_abs_err_vs_tf32x3_plain"] = err_x3
+        ok = ok and ok_x3
     return {"case": f"{name} [{route}]", "route": route, "B": B, "sq": sq, "sk": sk, "nq": nq,
             "nkv": nkv, "hd": hd, "dtype": dtype, "causal": causal, "window": window,
             "max_abs_err": err, "ok": ok, "ms": ms, "profiler_ms": profiler_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+            **extra}
 
 
 # per (t, channel, state): dt * A, exp, * h, dt * B, * x, +, * C and the
@@ -338,28 +367,51 @@ def mamba_case(torch, timer, name, *, Bt, S, di, n, dtype, h0, seed=0, profile=F
     B, C = rn(Bt, S, n).to(dt_), rn(Bt, S, n).to(dt_)
     D = 1 + 0.1 * rn(di)
     h = rn(Bt, di, n) if h0 else None
+    plan = ms.plan(Bt, S, di, n)
     y, hl = ms.mamba1_scan(x, dt, A, B, C, D, h)
     want_y, want_h = ref.mamba1_scan(x, dt, A, B, C, D, h)
+    chunked_y, chunked_h = ref.mamba1_scan_chunked(x, dt, A, B, C, D, h, chunk=plan.chunk)
     torch.cuda.synchronize()
     err_y, ok_y = compare(y, want_y, dtype)
     err_h, ok_h = compare(hl, want_h, "float32")
+    err_cy, ok_cy = compare(y, chunked_y, dtype)
+    err_ch, ok_ch = compare(hl, chunked_h, "float32")
     ms_ = timer(lambda: ms.mamba1_scan(x, dt, A, B, C, D, h))
-    profiler_ms = timer.profiled(lambda: ms.mamba1_scan(x, dt, A, B, C, D, h)) if profile else None
+    by_kernel = (timer.profiled_by_kernel(lambda: ms.mamba1_scan(x, dt, A, B, C, D, h))
+                 if profile else None)
+    profiler_ms = sum(by_kernel.values()) if profile else None
     plain_ms = timer(lambda: ref.mamba1_scan(x, dt, A, B, C, D, h), iters=3, warmup=1)
     elt = torch.finfo(dt_).bits // 8
     nbytes = (3 * Bt * S * di * elt + 2 * Bt * S * n * elt + 4 * (di * n + di)
               + 4 * Bt * di * n * (2 if h0 else 1))
     flops = Bt * S * di * (SCAN_FLOPS_PER_STATE * n + SCAN_FLOPS_PER_CHANNEL)
     b_ms, b_by = bound(nbytes, flops, "float32")     # the arithmetic is f32 for both types
-    return {"case": name, "Bt": Bt, "S": S, "di": di, "n": n, "dtype": dtype, "h0": h0,
+    # what the chunk passes add to the bytes, beyond the bound's: the chunk
+    # states (end and decay written, read and the start rewritten by the
+    # carry, read by the rerun) and x, dt and B read again over the chunks
+    # that pass 1 scans
+    n4 = -(-n // 4) * 4
+    whole = (plan.chunks - 1) * plan.chunk
+    pass_bytes = (6 * Bt * (plan.chunks - 1) * di * n4 * 4
+                  + Bt * whole * (2 * di + n) * elt)
+    return {"case": f"{name} [{plan.chunks} chunk{'s' if plan.chunks > 1 else ''}]",
+            "Bt": Bt, "S": S, "di": di, "n": n, "dtype": dtype, "h0": h0,
+            "chunk": plan.chunk, "chunks": plan.chunks,
+            "kernel_launches_per_call": plan.kernel_launches,
             "max_abs_err": max(err_y, err_h), "max_abs_err_y": err_y, "max_abs_err_h": err_h,
-            "ok": ok_y and ok_h, "ms": ms_, "profiler_ms": profiler_ms,
+            "max_abs_err_vs_chunked_plain": max(err_cy, err_ch),
+            "ok": ok_y and ok_h and ok_cy and ok_ch, "ms": ms_, "profiler_ms": profiler_ms,
+            "profiler_ms_by_kernel": by_kernel,
             "plain_ms": plain_ms, "library_ms": None,
-            "library": SCAN_LIBRARY, "bound_ms": b_ms, "bound_by": b_by}
+            "library": SCAN_LIBRARY, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes_the_passes_add": pass_bytes}
 
 
-def mamba_continuation_case(torch, *, Bt=1, S=512, di=8192, n=16, seed=5):
-    """Two halves with the carried state against one whole scan (f32)."""
+def mamba_continuation_case(torch, split, *, Bt=1, S=512, di=8192, n=16, seed=5):
+    """Two calls with the carried state against one whole scan (f32),
+    held to the f32 tolerance; whether they are also equal bit for bit is
+    reported, not required (the whole scan carries its chunk states
+    through the carry pass, the split through h_last)."""
     from repro_torch.kernels import mamba_scan as ms
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((Bt, S, di), generator=g, device="cuda") * 0.5
@@ -370,17 +422,21 @@ def mamba_continuation_case(torch, *, Bt=1, S=512, di=8192, n=16, seed=5):
     C = torch.randn((Bt, S, n), generator=g, device="cuda")
     D = torch.ones(di, device="cuda")
     y, h = ms.mamba1_scan(x, dt, A, B, C, D)
-    half = S // 2 + 1
-    y1, h1 = ms.mamba1_scan(x[:, :half], dt[:, :half], A, B[:, :half], C[:, :half], D)
-    y2, h2 = ms.mamba1_scan(x[:, half:], dt[:, half:], A, B[:, half:], C[:, half:], D, h1)
+    y1, h1 = ms.mamba1_scan(x[:, :split], dt[:, :split], A, B[:, :split], C[:, :split], D)
+    y2, h2 = ms.mamba1_scan(x[:, split:], dt[:, split:], A, B[:, split:], C[:, split:], D, h1)
     torch.cuda.synchronize()
-    err_y, ok_y = compare(torch.cat([y1, y2], 1), y, "float32")
+    y12 = torch.cat([y1, y2], 1)
+    err_y, ok_y = compare(y12, y, "float32")
     err_h, ok_h = compare(h2, h, "float32")
-    return {"case": f"continuation {half}+{S - half} vs {S}", "Bt": Bt, "S": S, "di": di,
-            "n": n, "dtype": "float32", "max_abs_err": max(err_y, err_h), "ok": ok_y and ok_h}
+    where = "on a chunk boundary" if split % ms.plan(Bt, S, di, n).chunk == 0 else "inside a chunk"
+    return {"case": f"continuation {split}+{S - split} vs {S}, split {where}", "Bt": Bt,
+            "S": S, "di": di, "n": n, "dtype": "float32", "max_abs_err": max(err_y, err_h),
+            "bitwise_equal": bool(torch.equal(y12, y) and torch.equal(h2, h)),
+            "ok": ok_y and ok_h}
 
 
 def phase_kernels(torch, F):
+    from repro_torch.kernels import mamba_scan as ms
     timer = Timer(torch)
     paged = [
         paged_case(torch, F, timer, "qwen_omni decode (slice)", B=8, nq=4, nkv=2, hd=32,
@@ -420,15 +476,27 @@ def phase_kernels(torch, F):
     flash.append(flash_case(torch, F, timer, "zamba2 shape bf16 causal hd 80", B=1, sq=512,
                             sk=512, nq=32, nkv=32, hd=80, dtype="bfloat16", causal=True,
                             seed=s + 3))
+    flash.append(flash_case(torch, F, timer, "vocoder self-attn bf16", B=8, sq=32, sk=32, nq=4,
+                            nkv=4, hd=32, dtype="bfloat16", seed=s + 4))
+    flash.append(flash_case(torch, F, timer, "GQA g 5 f32 window 128, 300 rows over 1000 keys",
+                            B=2, sq=300, sk=1000, nq=40, nkv=8, hd=128, dtype="float32",
+                            causal=True, window=128, seed=s + 5))
     scan = [
         mamba_case(torch, timer, "falcon-mamba decode bf16", Bt=8, S=1, di=8192, n=16,
                    dtype="bfloat16", h0=True, profile=True),
         mamba_case(torch, timer, "falcon-mamba prefill f32 (ragged S)", Bt=1, S=1000,
-                   di=8192, n=16, dtype="float32", h0=False, seed=1),
-        mamba_case(torch, timer, "smoke f32", Bt=1, S=8, di=512, n=8, dtype="float32",
-                   h0=False, seed=2),
-        mamba_continuation_case(torch),
+                   di=8192, n=16, dtype="float32", h0=False, seed=1, profile=True),
+        mamba_case(torch, timer, "falcon-mamba prefill f32, 256 tokens", Bt=1, S=256,
+                   di=8192, n=16, dtype="float32", h0=False, seed=3),
     ]
+    chunk = ms.CHUNK
+    for i, S in enumerate((chunk - 1, chunk, chunk + 1)):     # the edges of one chunk
+        scan.append(mamba_case(torch, timer, f"falcon-mamba prefill f32, S {S}", Bt=1, S=S,
+                               di=8192, n=16, dtype="float32", h0=True, seed=4 + i))
+    scan.append(mamba_case(torch, timer, "smoke f32", Bt=1, S=8, di=512, n=8, dtype="float32",
+                           h0=False, seed=2))
+    scan += [mamba_continuation_case(torch, 4 * chunk),
+             mamba_continuation_case(torch, 4 * chunk + 1)]
     return {"paged_attention": paged, "flash_attention": flash, "mamba1_scan": scan}
 
 
@@ -881,6 +949,7 @@ def phase_ssm_full_width(torch):
     _, busy = device_profile(torch, lambda: [runner.decode(embeds, None, positions, active)
                                              for _ in range(3)])
     ops.set_backend("auto")
+    out["prefill_profile"] = profiled_prefill(torch, runner, cfg, reqs, longest=True)
     out.update({"prefill_check_prompt_len": len(prompt),
                 "prefill_logits_max_abs_diff": lg_diff, "prefill_logits_max_abs": lg_scale,
                 "prefill_ssm_h_max_abs_diff": h_diff, "prefill_ssm_h_max_abs": h_scale,
@@ -897,11 +966,33 @@ def phase_hybrid(torch):
     scan, as in the JAX package) and the shared attention (flash kernel,
     hd 80) after every sixth layer."""
     from repro_torch.kernels import flash_attention as fa
-    out, _ = serve_state_arch(torch, "zamba2_2_7b", n_requests=4, max_new=16,
-                              lens_range=(128, 512), max_batch=4, max_seq=1024,
-                              counter=fa.launches)
+    out, ctx = serve_state_arch(torch, "zamba2_2_7b", n_requests=4, max_new=16,
+                                lens_range=(128, 512), max_batch=4, max_seq=1024,
+                                counter=fa.launches)
     out["phase"] = "hybrid"
+    out["prefill_profile"] = profiled_prefill(torch, ctx["runner"], ctx["cfg"], ctx["reqs"],
+                                              longest=False)
     return out
+
+
+def profiled_prefill(torch, runner, cfg, reqs, *, longest):
+    """One whole-prompt prefill (backend "cuda", after the served run has
+    warmed everything up) under the profiler: the prefill's device ms and
+    the port's kernels' share of it.  The longest served prompt, or the
+    shortest where the plain Mamba2 scan's launches per step make the
+    profile long."""
+    from repro_torch.engine.runner import _prefill_from_embeds
+    from repro_torch.kernels import ops
+    pick = max if longest else min
+    prompt = pick((r.inputs["tokens"] for r in reqs), key=len)
+    emb = torch.as_tensor(runner.embed(prompt), device="cuda")[None]
+    ops.set_backend("cuda")
+    with torch.no_grad():
+        _, prof = device_profile(
+            torch, lambda: _prefill_from_embeds(cfg, runner.params, emb, runner.kv.max_seq))
+    ops.set_backend("auto")
+    prof["prompt_len"] = len(prompt)
+    return prof
 
 
 def device_profile(torch, fn):
@@ -925,7 +1016,8 @@ def device_profile(torch, fn):
     top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
     # device time of each kernel of the port, all its launches (split and
     # combine kernels of paged attention together)
-    ours = {k: sum(us for n, us in per.items() if k in n) / 1e3 for k in PORT_KERNELS}
+    ours = {k: sum(us for n, us in per.items() if p in n) / 1e3
+            for k, p in PORT_KERNELS.items()}
     return result, {"wall_ms": 1e3 * wall, "device_ms": 1e3 * device_s,
                     "device_busy_share": device_s / wall if device_s else None,
                     "top_device_ms": {k[:60]: us / 1e3 for k, us in top},
@@ -955,9 +1047,10 @@ KERNEL_META = {
 }
 
 
-# a kernel's name and template arguments inside a mangled name
-KERNEL_NAME = re.compile(r"((?:flash_attention|paged_attention)_[a-z]+_kernel|mamba1_scan_kernel)"
-                         r"(I.*?EE)?")
+# a kernel's name and template arguments inside a mangled name: every
+# __global__ of the port is flash_attention_*_kernel, paged_attention_*_kernel
+# or mamba1_*_kernel
+KERNEL_NAME = re.compile(r"((?:flash_attention|paged_attention|mamba1)_[a-z_]*?kernel)(I.*?EE)?")
 
 
 def kernel_name(text: str):

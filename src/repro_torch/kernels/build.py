@@ -37,7 +37,7 @@ ENTRY_POINTS = {
     "flash_attention": ("flash_attention_launch",
                         [_P] * 4 + [_I] * 6 + [_L] * 9 + [_I] * 3 + [_F, _P]),
     "mamba_scan": ("mamba1_scan_launch",
-                   [_P] * 9 + [_I] * 4 + [_L] * 8 + [_I, _P]),
+                   [_P] * 10 + [_I] * 5 + [_L] * 8 + [_I, _P]),
 }
 
 _ARG_ERRORS = {-1: "unsupported dtype combination", -2: "unsupported head_dim",

@@ -50,20 +50,44 @@
 //    together and K/V come from L2.  Shared memory: Q 32 KB + 3 stages
 //    of 64 KB at hd 128, 225 KB in all.
 //
-// 2. f32 (any head_dim) and bf16 at head_dim 32 and 80:
-//    flash_attention_simt_kernel, on the CUDA cores in f32.  f32 parity
-//    is held at 2e-5, which rules out TF32; hd 80 rows (160 B) fit no TMA
-//    swizzle span without splitting the box, and hd 32 tiles are too
-//    narrow to feed wgmma.  One CTA per (32-row query tile, query head,
-//    batch), four threads per query row, K/V tiles of 32 keys widened to
-//    f32 in shared memory.  A register-blocked redesign is queued
-//    (ROADMAP Queue 2b).
+// 2. f32 at every head_dim, and bf16 at head_dim 32 and 80:
+//    flash_attention_mma_kernel, on the tensor cores through warp-level
+//    mma.sync.  Bound: the same arithmetic.  f32 is held to 2e-5 of the
+//    plain version, which one TF32 product (10 mantissa bits) misses, so
+//    every f32 product is split: a = a_hi + a_lo with both rounded to
+//    TF32 (cvt.rna), and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi into f32
+//    accumulators, three m16n8k8 TF32 mma per product (CUTLASS's
+//    OpMultiplyAddFastF32; kernels/ref.py: flash_attention_tf32x3 is this
+//    arithmetic in plain PyTorch, held to the JAX oracle at 2e-5 on the
+//    CPU).  The f32 bound is therefore 3 x operations / 495 TFLOP/s of
+//    dense TF32 against bytes / 3.35 TB/s (the CUDA cores give 67
+//    TFLOP/s).  bf16 at hd 32 and 80 runs m16n8k16 with f32 accumulators;
+//    hd 80 rows (160 B) need no TMA box here.  Design: one CTA per
+//    (64-row query tile, query head, batch), four warps of 16 query rows.
+//    bf16 Q stays in registers as A fragments for the whole pass; f32 Q
+//    (scaled) stays in shared memory and each warp reads and splits its
+//    16 rows per key tile, which leaves the registers to O (Q and O both
+//    in registers need more than 255 a thread at hd 128).  K and V
+//    tiles (32 keys in f32, 64 in bf16) are double-buffered in shared
+//    memory by cp.async (16-byte copies when every row starts on a
+//    16-byte boundary, element copies otherwise), with rows padded by 4
+//    f32 or 8 bf16 so that fragment reads and ldmatrix phases are free of
+//    bank conflicts.  The online softmax runs on the S accumulators in
+//    registers (row max and sum over the quad of lanes that holds a row,
+//    ex2.approx of (s - m) log2(e)), and P enters P V from registers:
+//    for bf16 two S tiles are one A fragment (FlashAttention-2's layout)
+//    and V's B fragments come from ldmatrix.trans; for TF32 the keys of
+//    each k8 step are permuted so that S's C fragment (columns 2 t, 2 t +
+//    1) is P's A fragment (columns t, t + 4), and V is read at the same
+//    permuted rows, so P needs no shuffle and no trip through shared
+//    memory.  Per-element masks are applied only to the tiles that a
+//    warp's rows do not see whole.
 //
 // Both skip key tiles exactly: a tile is skipped only when it is masked
 // for every row of the query tile AND every row of that tile has a
 // visible key elsewhere (a causal row at a negative position has none).
 //
-// Hazards met by the tensor-core kernel, and what it does about them:
+// Hazards met by the wgmma kernel, and what it does about them:
 // - wgmma serialized by ptxas (advisory C7520, then C7512): every HGMMA
 //   was followed by a wait, at ~270 TFLOP/s.  Branches ptxas cannot
 //   prove uniform over a warp made it serialize: the warp index is
@@ -101,19 +125,16 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the driver at run time
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace repro {
 namespace {
 
 // ---------------------------------------------------------------------------
-// CUDA-core kernel: f32, and bf16 at head_dim 32 and 80
+// Shared by both kernels
 // ---------------------------------------------------------------------------
-
-constexpr int kThreads = 128;
-constexpr int kRowThreads = 4;                     // threads sharing one query row
-constexpr int kBlockQ = kThreads / kRowThreads;    // 32 query rows per CTA
-constexpr int kBlockK = 32;                        // keys per shared-memory tile
 
 struct Strides {
   int64_t b, s, h;  // elements; head_dim stride is 1
@@ -131,156 +152,6 @@ __device__ __forceinline__ void key_range(int row0, int rows, int sq, int sk, in
   if (!causal || pos_lo >= 0) {
     if (causal) *j_end = min(sk, pos_hi + 1);
     if (window > 0) *j_begin = max(0, pos_lo - window + 1);
-  }
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) flash_attention_simt_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int sq, int sk, int nq, int nkv, Strides qs, Strides ks,
-    Strides vs, int causal, int window, float scale) {
-  constexpr int kChunks = HD / (4 * kRowThreads);  // float4 chunks per thread
-  constexpr int kDims = kChunks * 4;                 // head_dim slice per thread
-  __shared__ __align__(16) float k_s[kBlockK * HD];
-  __shared__ __align__(16) float v_s[kBlockK * HD];
-
-  const int tile = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (nq / nkv);
-  const int tid = threadIdx.x;
-  const int row = tid / kRowThreads;
-  const int part = tid % kRowThreads;
-  const int i = tile * kBlockQ + row;
-  const bool row_valid = i < sq;
-  const int qpos = i + sk - sq;
-
-  // this thread's dims: d = c * 16 + part * 4 + e, c < kChunks, e < 4
-  float qr[kDims];
-  float acc[kDims];
-  const T* qp = q + b * qs.b + static_cast<int64_t>(i) * qs.s + h * qs.h;
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = c * 16 + part * 4 + e;
-      qr[c * 4 + e] = row_valid ? to_f32(qp[d]) * scale : 0.f;
-      acc[c * 4 + e] = 0.f;
-    }
-  }
-  float m = kNegInf;
-  float l = 0.f;
-
-  int j_begin, j_end;
-  key_range(tile * kBlockQ, kBlockQ, sq, sk, causal, window, &j_begin, &j_end);
-  j_begin = (j_begin / kBlockK) * kBlockK;
-
-  const T* kb = k + b * ks.b + kvh * ks.h;
-  const T* vb = v + b * vs.b + kvh * vs.h;
-  for (int j0 = j_begin; j0 < j_end; j0 += kBlockK) {
-    for (int idx = tid; idx < kBlockK * HD; idx += kThreads) {
-      const int jj = idx / HD;
-      const int d = idx % HD;
-      const int j = j0 + jj;
-      float kx = 0.f;
-      float vx = 0.f;
-      if (j < sk) {
-        kx = to_f32(kb[static_cast<int64_t>(j) * ks.s + d]);
-        vx = to_f32(vb[static_cast<int64_t>(j) * vs.s + d]);
-      }
-      k_s[idx] = kx;
-      v_s[idx] = vx;
-    }
-    __syncthreads();
-
-    float s[kBlockK];
-    float mt = kNegInf;
-#pragma unroll
-    for (int jj = 0; jj < kBlockK; ++jj) {
-      float dot = 0.f;
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 kv4 = *reinterpret_cast<const float4*>(&k_s[jj * HD + c * 16 + part * 4]);
-        dot += qr[c * 4 + 0] * kv4.x + qr[c * 4 + 1] * kv4.y + qr[c * 4 + 2] * kv4.z +
-               qr[c * 4 + 3] * kv4.w;
-      }
-      // the four threads of a row are adjacent lanes
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      const int j = j0 + jj;
-      float sc;
-      if (j >= sk) {
-        sc = -__int_as_float(0x7f800000);  // -inf: padding past Sk is excluded, not masked
-      } else {
-        const bool visible = (!causal || j <= qpos) && (window <= 0 || j > qpos - window);
-        sc = visible ? dot : kNegInf;
-      }
-      s[jj] = sc;
-      mt = fmaxf(mt, sc);
-    }
-    const float m_new = fmaxf(m, mt);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int x = 0; x < kDims; ++x) acc[x] *= alpha;
-#pragma unroll
-    for (int jj = 0; jj < kBlockK; ++jj) {
-      const float p = expf(s[jj] - m_new);
-      l += p;
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 v4 = *reinterpret_cast<const float4*>(&v_s[jj * HD + c * 16 + part * 4]);
-        acc[c * 4 + 0] += p * v4.x;
-        acc[c * 4 + 1] += p * v4.y;
-        acc[c * 4 + 2] += p * v4.z;
-        acc[c * 4 + 3] += p * v4.w;
-      }
-    }
-    m = m_new;
-    __syncthreads();
-  }
-
-  if (row_valid) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* op = out + ((static_cast<int64_t>(b) * sq + i) * nq + h) * HD;
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) store_f32(op + c * 16 + part * 4 + e, acc[c * 4 + e] * inv);
-    }
-  }
-}
-
-template <typename T, int HD>
-int launch_simt(const void* q, const void* k, const void* v, void* out, int batch, int sq,
-                int sk, int nq, int nkv, Strides qs, Strides ks, Strides vs, int causal,
-                int window, float scale, cudaStream_t stream) {
-  dim3 grid((sq + kBlockQ - 1) / kBlockQ, nq, batch);
-  flash_attention_simt_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), sq, sk, nq, nkv, qs, ks, vs, causal, window, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// f32 at every head_dim the wrapper takes
-int launch_simt_f32(int hd, const void* q, const void* k, const void* v, void* out, int batch,
-                    int sq, int sk, int nq, int nkv, Strides qs, Strides ks, Strides vs,
-                    int causal, int window, float scale, cudaStream_t stream) {
-  switch (hd) {
-    case 32:
-      return launch_simt<float, 32>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs, causal,
-                                    window, scale, stream);
-    case 64:
-      return launch_simt<float, 64>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs, causal,
-                                    window, scale, stream);
-    case 80:  // Zamba2's shared attention; 5 float4 chunks per thread, 20 KB of K/V tiles
-      return launch_simt<float, 80>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs, causal,
-                                    window, scale, stream);
-    case 128:
-      return launch_simt<float, 128>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs, causal,
-                                     window, scale, stream);
-    default:
-      return kBadHeadDim;
   }
 }
 
@@ -790,15 +661,413 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int bat
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Warp-level tensor-core kernel (mma.sync): f32 at every head_dim, bf16 at
+// head_dim 32 and 80
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kMmaRows = 16 * kMmaWarps;  // query rows per CTA: 16 per warp
+
+// Keys per shared-memory tile and the padding of a tile row (elements):
+// rows of HD + 4 f32 or HD + 8 bf16 keep every fragment read and every
+// ldmatrix phase free of bank conflicts at head_dim 32, 64, 80 and 128,
+// and keep 16-byte cp.async destinations aligned.
+template <typename T>
+struct MmaTile;
+template <>
+struct MmaTile<float> {
+  static constexpr int kKeys = 32;
+  static constexpr int kPad = 4;
+};
+template <>
+struct MmaTile<__nv_bfloat16> {
+  static constexpr int kKeys = 64;
+  static constexpr int kPad = 8;
+};
+
+template <typename T, int HD>
+constexpr size_t mma_smem_bytes() {
+  // two stages of a K tile and a V tile, and for f32 the CTA's Q tile
+  constexpr size_t row = (HD + MmaTile<T>::kPad) * sizeof(T);
+  return 4 * MmaTile<T>::kKeys * row + (std::is_same<T, float>::value ? kMmaRows * row : 0);
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both TF32 (rounded to nearest, ties away from zero)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in f32 through three TF32 products of the split operands, the
+// small ones first
+__device__ __forceinline__ void mma_tf32x3(float (&c)[4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4], float b0, float b1) {
+  uint32_t b0_hi, b0_lo, b1_hi, b1_lo;
+  split_tf32(b0, b0_hi, b0_lo);
+  split_tf32(b1, b1_hi, b1_lo);
+  mma_tf32(c, a_lo, b0_hi, b1_hi);
+  mma_tf32(c, a_hi, b0_lo, b1_lo);
+  mma_tf32(c, a_hi, b0_hi, b1_hi);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 bf16 matrices, transposed: lane l gives the row address of
+// matrix l / 8
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+
+// 16 bytes from global to shared memory; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ T zero_of() {
+  return static_cast<T>(0.f);
+}
+
+// Rows [j0, j0 + kKeys) of one kv head's K and V into a shared tile of
+// rows padded to LD; rows past Sk are zeros (V must stay finite: P is 0
+// there).  With every address a multiple of 16 bytes (vec16) the copy is
+// cp.async of 16 bytes; otherwise element by element.
+template <typename T, int HD>
+__device__ __forceinline__ void load_kv_tile(T* k_dst, T* v_dst, const T* kb, const T* vb,
+                                             int j0, int sk, int64_t k_ss, int64_t v_ss,
+                                             int vec16) {
+  constexpr int BN = MmaTile<T>::kKeys;
+  constexpr int LD = HD + MmaTile<T>::kPad;
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  constexpr int kRowChunks = HD / kVec;
+  if (vec16) {
+    for (int idx = threadIdx.x; idx < BN * kRowChunks; idx += kMmaThreads) {
+      const int r = idx / kRowChunks;
+      const int c = (idx % kRowChunks) * kVec;
+      const int j = j0 + r;
+      const int bytes = j < sk ? 16 : 0;
+      const int64_t jj = j < sk ? j : 0;  // a valid address even when nothing is read
+      cp_async16(k_dst + r * LD + c, kb + jj * k_ss + c, bytes);
+      cp_async16(v_dst + r * LD + c, vb + jj * v_ss + c, bytes);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < BN * HD; idx += kMmaThreads) {
+      const int r = idx / HD;
+      const int d = idx % HD;
+      const int j = j0 + r;
+      k_dst[r * LD + d] = j < sk ? kb[static_cast<int64_t>(j) * k_ss + d] : zero_of<T>();
+      v_dst[r * LD + d] = j < sk ? vb[static_cast<int64_t>(j) * v_ss + d] : zero_of<T>();
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kMmaThreads) flash_attention_mma_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ out, int sq, int sk, int nq, int nkv, Strides qs, Strides ks,
+    Strides vs, int causal, int window, float scale, int vec16) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int BN = MmaTile<T>::kKeys;
+  constexpr int LD = HD + MmaTile<T>::kPad;
+  constexpr int NT = BN / 8;  // n8 tiles of S, k8 steps of P V (f32)
+  constexpr int DT = HD / 8;  // n8 tiles of O, k8 steps of Q K^T (f32)
+  constexpr int KQ = kF32 ? HD / 8 : HD / 16;  // k steps of Q K^T
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  T* tiles = reinterpret_cast<T*>(mma_smem);  // stage s: K at 2s, V at 2s + 1
+  float* q_s = reinterpret_cast<float*>(tiles + 4 * BN * LD);  // f32: the Q tile, scaled
+
+  // longest query tiles first when causal
+  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (nq / nkv);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;   // fragment row (and row + 8)
+  const int t4 = lane % 4;  // fragment column pair
+  const int row0 = tile * kMmaRows + warp * 16;
+  const int shift = sk - sq;
+  const bool warp_live = row0 < sq;
+  const int rows[2] = {row0 + g, row0 + g + 8};
+
+  // Q as A fragments: bf16 packed in pairs and kept in registers (S is
+  // scaled after the product); f32 scaled into shared memory, each warp's
+  // 16 rows read and split per key tile (registers hold O instead)
+  uint32_t qb[kF32 ? 1 : KQ][4];
+  if constexpr (kF32) {
+    for (int idx = threadIdx.x; idx < kMmaRows * HD; idx += kMmaThreads) {
+      const int r = idx / HD;
+      const int d = idx % HD;
+      const int i = tile * kMmaRows + r;
+      q_s[r * LD + d] =
+          i < sq ? to_f32(q[b * qs.b + static_cast<int64_t>(i) * qs.s + h * qs.h + d]) * scale
+                 : 0.f;
+    }
+  } else {
+    const T* qp[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      qp[r] = q + b * qs.b + static_cast<int64_t>(min(rows[r], sq - 1)) * qs.s + h * qs.h;
+#pragma unroll
+    for (int kq = 0; kq < KQ; ++kq) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e & 1;  // a0, a2: row g; a1, a3: row g + 8
+        const bool live = rows[r] < sq;
+        const int d = kq * 16 + 2 * t4 + (e >> 1) * 8;
+        qb[kq][e] = pack_bf16x2(live ? to_f32(qp[r][d]) : 0.f,
+                                live ? to_f32(qp[r][d + 1]) : 0.f);
+      }
+    }
+  }
+  const float* q_w = q_s + (warp * 16 + g) * LD + t4;  // f32: this lane's row g, column t4
+
+  float o[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+
+  int j_begin, j_end;
+  key_range(tile * kMmaRows, kMmaRows, sq, sk, causal, window, &j_begin, &j_end);
+  j_begin = (j_begin / BN) * BN;
+  const int n_tiles = (j_end - j_begin + BN - 1) / BN;
+  const T* kb = k + b * ks.b + kvh * ks.h;
+  const T* vb = v + b * vs.b + kvh * vs.h;
+  // a tile needs per-element masks unless every key of it is visible to
+  // every row of this warp
+  const int wpos_lo = row0 + shift;
+  const int wpos_hi = row0 + 15 + shift;
+
+  load_kv_tile<T, HD>(tiles, tiles + BN * LD, kb, vb, j_begin, sk, ks.s, vs.s, vec16);
+  cp_async_commit();
+  for (int it = 0; it < n_tiles; ++it) {
+    const int j0 = j_begin + it * BN;
+    if (it + 1 < n_tiles) {
+      T* next = tiles + ((it + 1) & 1) * 2 * BN * LD;
+      load_kv_tile<T, HD>(next, next + BN * LD, kb, vb, j0 + BN, sk, ks.s, vs.s, vec16);
+    }
+    cp_async_commit();
+    cp_async_wait_one();  // tile `it` has landed (the newest group may still fly)
+    __syncthreads();
+    const T* k_s = tiles + (it & 1) * 2 * BN * LD;
+    const T* v_s = k_s + BN * LD;
+
+    if (warp_live) {
+      // S = Q K^T: rows g, g + 8; keys j0 + 8 nt + 2 t4 + {0, 1}
+      float s[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+      for (int kq = 0; kq < KQ; ++kq) {
+        if constexpr (kF32) {
+          // a0: (g, t4), a1: (g + 8, t4), a2: (g, t4 + 4), a3: (g + 8, t4 + 4)
+          uint32_t a_hi[4], a_lo[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split_tf32(q_w[(e & 1) * 8 * LD + kq * 8 + (e >> 1) * 4], a_hi[e], a_lo[e]);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const float* kr = k_s + (nt * 8 + g) * LD + kq * 8 + t4;
+            mma_tf32x3(s[nt], a_hi, a_lo, kr[0], kr[4]);
+          }
+        } else {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const T* kr = k_s + (nt * 8 + g) * LD + kq * 16 + 2 * t4;
+            mma_bf16(s[nt], qb[kq], *reinterpret_cast<const uint32_t*>(kr),
+                     *reinterpret_cast<const uint32_t*>(kr + 8));
+          }
+        }
+      }
+      if constexpr (!kF32) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] *= scale;
+      }
+      const bool need_mask = j0 + BN > sk || (causal && j0 + BN - 1 > wpos_lo) ||
+                             (window > 0 && j0 <= wpos_hi - window);
+      if (need_mask) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = j0 + nt * 8 + 2 * t4 + (e & 1);
+            const int pos = rows[e >> 1] + shift;
+            const bool visible = (!causal || j <= pos) && (window <= 0 || j > pos - window);
+            // padding past Sk is excluded (-inf), masked keys take -2**30
+            s[nt][e] = j >= sk ? -__int_as_float(0x7f800000) : (visible ? s[nt][e] : kNegInf);
+          }
+        }
+      }
+
+      // online softmax; a row's four values sit in the quad of lanes 4g..4g+3
+      float mt[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        mt[0] = fmaxf(mt[0], fmaxf(s[nt][0], s[nt][1]));
+        mt[1] = fmaxf(mt[1], fmaxf(s[nt][2], s[nt][3]));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+        const float alpha = fast_exp2((m[r] - mt[r]) * kLog2e);
+        m[r] = mt[r];
+        l[r] *= alpha;
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt) {
+          o[dt][2 * r] *= alpha;
+          o[dt][2 * r + 1] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] = fast_exp2((s[nt][e] - m[e >> 1]) * kLog2e);
+          l[e >> 1] += s[nt][e];
+        }
+      }
+
+      // O += P V
+      if constexpr (kF32) {
+        // The C fragment of S (columns 2 t4, 2 t4 + 1) is used as the A
+        // fragment of P (columns t4, t4 + 4) with the keys of each k8
+        // step permuted: A column t4 is key 2 t4, column t4 + 4 key
+        // 2 t4 + 1, and V's B fragment reads the same keys.  No shuffle.
+#pragma unroll
+        for (int kk = 0; kk < NT; ++kk) {
+          uint32_t a_hi[4], a_lo[4];
+          split_tf32(s[kk][0], a_hi[0], a_lo[0]);
+          split_tf32(s[kk][2], a_hi[1], a_lo[1]);
+          split_tf32(s[kk][1], a_hi[2], a_lo[2]);
+          split_tf32(s[kk][3], a_hi[3], a_lo[3]);
+          const float* vr = v_s + (kk * 8 + 2 * t4) * LD + g;
+#pragma unroll
+          for (int dt = 0; dt < DT; ++dt)
+            mma_tf32x3(o[dt], a_hi, a_lo, vr[dt * 8], vr[LD + dt * 8]);
+        }
+      } else {
+        // two S tiles of 8 keys are one A fragment of 16 keys, packed as
+        // they lie (FlashAttention-2's layout); V's B fragments through
+        // ldmatrix.trans, two n8 tiles per instruction
+#pragma unroll
+        for (int kk = 0; kk < NT / 2; ++kk) {
+          const uint32_t a[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
+                                 pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
+                                 pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                 pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+          const T* vrow = v_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                          (lane >> 4) * 8;
+#pragma unroll
+          for (int dt = 0; dt < DT; dt += 2) {
+            uint32_t bv[4];
+            ldmatrix_x4_trans(bv, vrow + dt * 8);
+            mma_bf16(o[dt], a, bv[0], bv[1]);
+            mma_bf16(o[dt + 1], a, bv[2], bv[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the stage is free for the load two tiles on
+  }
+
+  if (!warp_live) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (rows[r] >= sq) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    T* op = out + ((static_cast<int64_t>(b) * sq + rows[r]) * nq + h) * HD + 2 * t4;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      const float x0 = o[dt][2 * r] * inv;
+      const float x1 = o[dt][2 * r + 1] * inv;
+      if constexpr (kF32) {
+        *reinterpret_cast<float2*>(op + dt * 8) = make_float2(x0, x1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(op + dt * 8) = __floats2bfloat162_rn(x0, x1);
+      }
+    }
+  }
+}
+
+// whether every row a K or V tile copy reads starts on a 16-byte boundary
+bool rows_aligned16(const void* p, Strides st, int elt) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (st.b * elt) % 16 == 0 &&
+         (st.s * elt) % 16 == 0 && (st.h * elt) % 16 == 0;
+}
+
+template <typename T, int HD>
+int launch_mma(const void* q, const void* k, const void* v, void* out, int batch, int sq,
+               int sk, int nq, int nkv, Strides qs, Strides ks, Strides vs, int causal,
+               int window, float scale, cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<T, HD>();
+  auto kernel = flash_attention_mma_kernel<T, HD>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int elt = static_cast<int>(sizeof(T));
+  const int vec16 = rows_aligned16(k, ks, elt) && rows_aligned16(v, vs, elt);
+  dim3 grid((sq + kMmaRows - 1) / kMmaRows, nq, batch);
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), sq, sk, nq, nkv, qs, ks, vs, causal, window, scale, vec16);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace repro
 
 // q: (B, Sq, nq, hd), k/v: (B, Sk, nkv, hd), all in `dtype`, addressed by
 // the given (batch, seq, head) strides in elements with head_dim
 // contiguous; out: contiguous (B, Sq, nq, hd) in `dtype`.  bf16 at head_dim
-// 64 and 128 runs the tensor-core kernel (its base addresses and strides
-// must be multiples of 16 bytes); everything else the CUDA-core kernel.
-// Returns 0, a cudaError_t, or a negative repro::ArgError.
+// 64 and 128 runs the wgmma kernel (its base addresses and strides must be
+// multiples of 16 bytes); f32 at every head_dim and bf16 at 32 and 80 the
+// mma.sync kernel.  Returns 0, a cudaError_t, or a negative
+// repro::ArgError.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int batch, int sq, int sk, int nq, int nkv, int hd,
                                       int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
@@ -812,20 +1081,35 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const Strides ks{k_sb, k_ss, k_sh};
   const Strides vs{v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return launch_simt_f32(hd, q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs, causal, window,
-                           scale, s);
+  if (dtype == kF32) {
+    switch (hd) {
+      case 32:
+        return launch_mma<float, 32>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs, causal,
+                                     window, scale, s);
+      case 64:
+        return launch_mma<float, 64>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs, causal,
+                                     window, scale, s);
+      case 80:  // Zamba2's shared attention
+        return launch_mma<float, 80>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs, causal,
+                                     window, scale, s);
+      case 128:
+        return launch_mma<float, 128>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs, causal,
+                                      window, scale, s);
+      default:
+        return kBadHeadDim;
+    }
+  }
   if (dtype != kBF16) return kBadDType;
   switch (hd) {
     case 32:
-      return launch_simt<__nv_bfloat16, 32>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs,
-                                            causal, window, scale, s);
+      return launch_mma<__nv_bfloat16, 32>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs,
+                                           causal, window, scale, s);
     case 64:
       return launch_wgmma<64>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs, causal, window,
                               scale, s);
     case 80:
-      return launch_simt<__nv_bfloat16, 80>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs,
-                                            causal, window, scale, s);
+      return launch_mma<__nv_bfloat16, 80>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs,
+                                           causal, window, scale, s);
     case 128:
       return launch_wgmma<128>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs, causal, window,
                                scale, s);

@@ -1,18 +1,21 @@
 """Full-sequence attention: wrapper around ``csrc/flash_attention.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py:
-flash_attention``.  The CUDA source holds two kernels, and the route is
-chosen here, explicitly, by type and head_dim (``route``):
+flash_attention``.  The CUDA source holds two kernels, both on the tensor
+cores, and the route is chosen here, explicitly, by type and head_dim
+(``route``), with no fallback from one to the other:
 
-- ``"tensor-core"``: bf16 at head_dim 64 and 128.  wgmma tiles fed by TMA
-  loads; q, k and v are read through TMA descriptors, which need the base
-  address and the head, sequence and batch strides to be multiples of 16
-  bytes (``tma_ok``).  A view that fails this is copied into a fresh
-  contiguous tensor first: a copy, not another kernel.
-- ``"cuda-core"``: f32 at any supported head_dim (f32 parity at 2e-5
-  rules out TF32) and bf16 at head_dim 32 and 80 (80-element rows fit no
-  TMA swizzle span; 32 is too narrow for wgmma).  Reads through strides;
-  only head_dim must be contiguous.
+- ``"wgmma"``: bf16 at head_dim 64 and 128.  Warpgroup wgmma tiles fed
+  by TMA loads; q, k and v are read through TMA descriptors, which need
+  the base address and the head, sequence and batch strides to be
+  multiples of 16 bytes (``tma_ok``).  A view that fails this is copied
+  into a fresh contiguous tensor first: a copy, not another kernel.
+- ``"mma"``: f32 at every head_dim and bf16 at head_dim 32 and 80
+  (80-element rows fit no TMA swizzle span; 32 is too narrow for
+  wgmma).  Warp-level mma.sync; f32 products are split into three TF32
+  products (held to the f32 tolerance of 2e-5;
+  ``ref.flash_attention_tf32x3`` is that arithmetic in plain PyTorch).
+  Reads through strides; only head_dim must be contiguous.
 
 The source's header says what bounds each on the card and how its design
 answers that.  Unlike the Pallas version both take any Sq and Sk (ragged
@@ -33,14 +36,14 @@ launches = build.LaunchCounter()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128)
-TENSOR_CORE_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 128)
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernel of ``csrc/flash_attention.cu`` a call takes."""
-    if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS:
-        return "tensor-core"
-    return "cuda-core"
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "mma"
 
 
 def tma_ok(t: torch.Tensor) -> bool:
@@ -73,7 +76,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     if nq % nkv:
         raise ValueError(f"flash_attention: {nq} query heads over {nkv} kv heads")
-    if route(q.dtype, hd) == "tensor-core":
+    if route(q.dtype, hd) == "wgmma":
         # a copy is contiguous and starts on the allocator's aligned base
         q, k, v = (t if tma_ok(t) else t.clone(memory_format=torch.contiguous_format)
                    for t in (q, k, v))

@@ -61,6 +61,52 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, sq, nq, hd).to(q.dtype)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` does: the low 13 bits of the
+    magnitude are rounded off."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _einsum_tf32x3(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32 product through split TF32 products: a = a_hi + a_lo with both
+    parts rounded to TF32, and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi
+    (each TF32 product is exact in f32; the sums are f32)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + torch.einsum(eq, a_hi, b_hi))
+
+
+def flash_attention_tf32x3(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                           causal: bool = True, window: int = 0,
+                           scale: float | None = None) -> torch.Tensor:
+    """``flash_attention`` in f32 with the arithmetic of the CUDA mma
+    kernel's f32 path: S = (scale q) k^T and O = P V each as three TF32
+    tensor-core products of split operands, P = exp(S - rowmax)
+    unnormalised in f32, O divided by the f32 row sum at the end.  Used by
+    the tests and chip_smoke to hold that arithmetic to the f32
+    tolerance, never by the serving path."""
+    b, sq, nq, hd = q.shape
+    nkv, sk = k.shape[2], k.shape[1]
+    scale = scale if scale is not None else hd ** -0.5
+    qg = _group(q, nkv).float() * scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    s = _einsum_tf32x3("bskgh,btkh->bkgst", qg, k.float())
+    s = torch.where(mask, s, _NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = _einsum_tf32x3("bkgst,btkh->bskgh", p, v.float())
+    out = out / p.sum(-1).permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, sq, nq, hd).to(q.dtype)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: torch.Tensor, *,
                      window: int = 0, scale: float | None = None,
@@ -242,6 +288,56 @@ def mamba1_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Ten
         ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
     y = torch.stack(ys, 1) + xf * D.float()[None, None]
     return y.to(x.dtype), h
+
+
+def mamba1_scan_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                        B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                        h0: torch.Tensor | None = None, chunk: int = 64):
+    """``mamba1_scan`` computed the way the chunked CUDA kernel does.
+
+    S is cut into chunks of ``chunk`` steps.  Pass 1 scans each chunk
+    from a zero state and keeps its end state and its decay, the running
+    product of the per-step factors exp(dt A) (the kernel skips the last
+    chunk, whose end is never used).  Pass 2 carries
+    the true start state across the chunks in order: start[0] = h0 (or
+    zeros), start[c + 1] = decay[c] start[c] + end[c].  Pass 3 reruns
+    every chunk from its start state and gives y and, from the last
+    chunk, h_last.  The last chunk is padded with dt = 0 steps, which
+    leave the state and the decay unchanged exactly.  Used by the tests
+    and chip_smoke, never by the serving path.
+    """
+    bt, s, di = x.shape
+    n = A.shape[1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+
+    def chunks(t):      # (Bt, S, m) f32 -> (Bt, nc, chunk, m), zero-padded
+        t = torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+        return t.reshape(bt, nc, chunk, t.shape[-1])
+
+    xf, dtf, Bf, Cf = chunks(x), chunks(dt), chunks(B), chunks(C)
+    Af = A.float()
+    h = torch.zeros((bt, nc, di, n), dtype=torch.float32, device=x.device)
+    decay = torch.ones_like(h)
+    for t in range(chunk):                                        # pass 1
+        dtt = dtf[:, :, t, :, None]                               # (Bt, nc, di, 1)
+        dA = torch.exp(dtt * Af)
+        decay = decay * dA
+        h = dA * h + dtt * Bf[:, :, t, None, :] * xf[:, :, t, :, None]
+    start = (torch.zeros((bt, di, n), dtype=torch.float32, device=x.device)
+             if h0 is None else h0.float())
+    starts = [start]
+    for c in range(nc - 1):                                       # pass 2
+        start = decay[:, c] * start + h[:, c]
+        starts.append(start)
+    h = torch.stack(starts, 1)
+    ys = []
+    for t in range(chunk):                                        # pass 3
+        dtt = dtf[:, :, t, :, None]
+        h = torch.exp(dtt * Af) * h + dtt * Bf[:, :, t, None, :] * xf[:, :, t, :, None]
+        ys.append(torch.einsum("bcdn,bcn->bcd", h, Cf[:, :, t]))
+    y = torch.stack(ys, 2).reshape(bt, nc * chunk, di)[:, :s] + x.float() * D.float()
+    return y.to(x.dtype), h[:, -1]
 
 
 def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,

@@ -43,10 +43,9 @@ def _tol(dtype):
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0), (False, 9),
                                            (True, 200), (False, 130)])
 def test_flash_kernel_matches_plain(cuda, b, sq, sk, nq, nkv, hd, causal, window, dtype):
-    """bf16 at hd 64/128 takes the tensor-core kernel, the rest the
-    CUDA-core one: ragged Sq/Sk (77, 129, 1000 x 77), Sq > Sk under
-    causal (rows at negative positions), windows across 128-key tiles,
-    GQA with g = 5."""
+    """bf16 at hd 64/128 takes the wgmma kernel, the rest the mma.sync
+    one: ragged Sq/Sk (77, 129, 1000 x 77), Sq > Sk under causal (rows at
+    negative positions), windows across 128-key tiles, GQA with g = 5."""
     q = torch.randn((b, sq, nq, hd), generator=cuda, device="cuda").to(dtype)
     k = torch.randn((b, sk, nkv, hd), generator=cuda, device="cuda").to(dtype)
     v = torch.randn((b, sk, nkv, hd), generator=cuda, device="cuda").to(dtype)
@@ -100,6 +99,69 @@ def test_bf16_flash_failure_raises_without_fallback(cuda, monkeypatch):
     q = torch.randn((1, 64, 4, 128), generator=cuda, device="cuda").bfloat16()
     n = fa.launches.value
     with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention(q, q, q)
+    assert fa.launches.value == n
+
+
+MMA_CASES = [(torch.float32, 32), (torch.float32, 64), (torch.float32, 80),
+             (torch.float32, 128), (torch.bfloat16, 32), (torch.bfloat16, 80)]
+
+
+@pytest.mark.parametrize("dtype,hd", MMA_CASES)
+@pytest.mark.parametrize("b,sq,sk,nq,nkv,causal,window", [
+    (1, 100, 60, 4, 2, True, 0),      # Sq > Sk: 40 causal rows at negative positions
+    (2, 65, 97, 6, 3, True, 40),      # ragged tails of both, a window across key tiles
+    (1, 130, 130, 10, 2, False, 33),  # GQA g = 5, a window without causality
+    (3, 1, 33, 4, 4, True, 0),        # one query row
+    (1, 512, 512, 4, 4, True, 0)])    # Zamba2's prefill shape, fewer heads
+def test_flash_mma_route_matches_plain(cuda, dtype, hd, b, sq, sk, nq, nkv, causal, window):
+    """The mma.sync route at every (type, head_dim) it serves; f32 also
+    against the plain version of its split-TF32 arithmetic."""
+    assert fa.route(dtype, hd) == "mma"
+    q = torch.randn((b, sq, nq, hd), generator=cuda, device="cuda").to(dtype)
+    k = torch.randn((b, sk, nkv, hd), generator=cuda, device="cuda").to(dtype)
+    v = torch.randn((b, sk, nkv, hd), generator=cuda, device="cuda").to(dtype)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and got.dtype == dtype
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    if dtype == torch.float32:
+        tf32x3 = ref.flash_attention_tf32x3(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got, tf32x3, **_tol(dtype))
+
+
+@pytest.mark.parametrize("kind", ["qkv", "padded", "offset"])
+@pytest.mark.parametrize("dtype,hd", MMA_CASES)
+def test_flash_mma_route_reads_misaligned_views(cuda, kind, dtype, hd):
+    """Columns of a qkv tensor, rows padded by 4 elements and a base one
+    element in: the K/V tiles are copied in 16-byte pieces only where
+    every row starts on a 16-byte boundary, element by element otherwise."""
+    q, k, v = _views(kind, cuda, 2, 140, 4, hd, dtype)
+    got = fa.flash_attention(q, k, v, causal=True, window=50)
+    want = ref.flash_attention(q, k, v, causal=True, window=50)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+def test_flash_mma_failure_raises_without_fallback(cuda, monkeypatch):
+    """A failed launch of the mma route is an error: no other kernel, no
+    plain version, no launch counted."""
+    class FailingLib:
+        def flash_attention_launch(self, *args):
+            return 9            # cudaErrorInvalidConfiguration
+
+        def repro_cuda_error_string(self, code):
+            return b"invalid configuration argument"
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version was called")
+
+    monkeypatch.setattr(build, "load", lambda name: FailingLib())
+    monkeypatch.setitem(build._libs, "flash_attention", FailingLib())
+    monkeypatch.setattr(ref, "flash_attention", no_plain)
+    q = torch.randn((1, 64, 4, 80), generator=cuda, device="cuda")
+    n = fa.launches.value
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
         fa.flash_attention(q, q, q)
     assert fa.launches.value == n
 
@@ -229,6 +291,69 @@ def test_mamba_kernel_continuation_equals_whole_scan(cuda):
     y2, h2 = ms.mamba1_scan(x[:, 77:], dt[:, 77:], A, B[:, 77:], C[:, 77:], D, h1)
     torch.testing.assert_close(torch.cat([y1, y2], 1), y, **_tol(None))
     torch.testing.assert_close(h2, h, **_tol(None))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 2, 63, 64, 65, 128, 129, 1000])
+def test_mamba_kernel_chunk_edges(cuda, dtype, s):
+    """One step (the one-step kernel), two (the single pass), one chunk
+    less a step, one chunk, one step more, two chunks, two and a step,
+    Falcon's 1000-step prefill; 200 channels (not a multiple of a CTA's
+    32) and h0.  Held against the plain scan and the plain version of the
+    chunked order."""
+    bt, di, n = 2, 200, 16
+    x, dt, A, B, C, D = _scan_inputs(cuda, bt, s, di, n, dtype, True)
+    h0 = torch.randn((bt, di, n), generator=cuda, device="cuda")
+    plan = ms.plan(bt, s, di, n)
+    assert (plan.kernel_launches == 1) == (s <= ms.CHUNK)
+    y, h = ms.mamba1_scan(x, dt, A, B, C, D, h0)
+    torch.cuda.synchronize()
+    want_y, want_h = ref.mamba1_scan(x, dt, A, B, C, D, h0)
+    torch.testing.assert_close(y.float(), want_y.float(), **_tol(dtype))
+    torch.testing.assert_close(h, want_h, **_tol(None))
+    cy, ch = ref.mamba1_scan_chunked(x, dt, A, B, C, D, h0, chunk=plan.chunk)
+    torch.testing.assert_close(y.float(), cy.float(), **_tol(dtype))
+    torch.testing.assert_close(h, ch, **_tol(None))
+
+
+@pytest.mark.parametrize("bt", [1, 5, 9])
+@pytest.mark.parametrize("n", [5, 16])
+def test_mamba_step_kernel_batch_rows(cuda, bt, n):
+    """The one-step kernel takes four batch rows per CTA: a batch that
+    leaves a CTA's last rows empty, with and without whole lanes of
+    states."""
+    x, dt, A, B, C, D = _scan_inputs(cuda, bt, 1, 96, n, torch.bfloat16, True)
+    h0 = torch.randn((bt, 96, n), generator=cuda, device="cuda")
+    y, h = ms.mamba1_scan(x, dt, A, B, C, D, h0)
+    want_y, want_h = ref.mamba1_scan(x, dt, A, B, C, D, h0)
+    torch.testing.assert_close(y.float(), want_y.float(), **_tol(torch.bfloat16))
+    torch.testing.assert_close(h, want_h, **_tol(None))
+
+
+@pytest.mark.parametrize("split", [64, 77, 128])
+def test_mamba_kernel_continuation_across_chunks(cuda, split):
+    """Two calls with the carried state against one whole scan, split on
+    a chunk boundary (64, 128) and inside a chunk (77), with n 5."""
+    x, dt, A, B, C, D = _scan_inputs(cuda, 1, 200, 256, 5, torch.float32, True)
+    y, h = ms.mamba1_scan(x, dt, A, B, C, D)
+    y1, h1 = ms.mamba1_scan(x[:, :split], dt[:, :split], A, B[:, :split], C[:, :split], D)
+    y2, h2 = ms.mamba1_scan(x[:, split:], dt[:, split:], A, B[:, split:], C[:, split:], D, h1)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y, **_tol(None))
+    torch.testing.assert_close(h2, h, **_tol(None))
+
+
+@pytest.mark.parametrize("s", [1, 1000])
+def test_mamba_kernel_makes_no_host_sync(cuda, s):
+    """The wrapper plans chunks, grid and scratch from shapes alone."""
+    x, dt, A, B, C, D = _scan_inputs(cuda, 2, s, 512, 16, torch.bfloat16, True)
+    h0 = torch.randn((2, 512, 16), generator=cuda, device="cuda")
+    ms.mamba1_scan(x, dt, A, B, C, D, h0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ms.mamba1_scan(x, dt, A, B, C, D, h0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -121,9 +121,9 @@ def test_paged_plan_has_more_ctas_than_sms_at_the_14b_shape():
 
 
 @pytest.mark.parametrize("dtype,hd,route", [
-    (torch.bfloat16, 128, "tensor-core"), (torch.bfloat16, 64, "tensor-core"),
-    (torch.bfloat16, 80, "cuda-core"), (torch.bfloat16, 32, "cuda-core"),
-    (torch.float32, 128, "cuda-core"), (torch.float32, 64, "cuda-core")])
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 80, "mma"), (torch.bfloat16, 32, "mma"),
+    (torch.float32, 128, "mma"), (torch.float32, 64, "mma")])
 def test_flash_route(dtype, hd, route):
     assert tfa.route(dtype, hd) == route
 
