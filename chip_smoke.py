@@ -25,9 +25,21 @@ Phases, each printing one JSON line with its wall time:
                 backend "cuda" and backend "ref", whose Thinker and Talker
                 tokens must be identical; then 8 requests as the CLI serves
                 them with the backend forced to "cuda" (launches counted);
+  4b. pipelines — qwen3_omni (CNN vocoder), glm_image, bagel, epd and
+                mimo_audio at their builders' sizes, 4 requests each
+                (completion, output shapes, launches per run), and the CNN
+                vocoder's latents against its plain f32 conv on the CPU;
   5. full_width — Qwen2.5-14B at its published width served as a one-stage
                 AR graph (8 requests, 32 greedy tokens each), then one
                 batched decode step with backend "cuda" against "ref";
+  5b. pd_full_width — InternLM2-1.8B at its published width and depth
+                served three ways on the same weights (8 requests of
+                128-1536 tokens, 32 greedy tokens): a unified engine, PD
+                disaggregation with thread stages and the shm connector
+                (the prompt KV's hop held bit for bit), and the same with
+                the decode stage in a spawned process (its device and
+                paged launches read from its status); first tokens equal,
+                one batched decode step with backend "cuda" against "ref";
   6. ssm_full_width — Falcon-Mamba-7B at its published width and depth (64
                 Mamba1 layers) served the same way through StateRunner
                 (8 requests of 128-1536 tokens, 32 greedy tokens, scan
@@ -41,6 +53,7 @@ Phases, each printing one JSON line with its wall time:
                 counted), then one whole-prompt prefill (the shortest
                 prompt: the plain Mamba2 scan launches per step) under the
                 profiler.
+Every JSON line is also written to ``chiprun_out/chip_smoke.jsonl``.
 Then the ``{"kernels": [...]}`` line (launch counts of the runs that use
 each kernel, each counted from 0) and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero before the last line.  Without a
@@ -79,8 +92,18 @@ FULL_WIDTH_LOGIT_RTOL = 5e-2
 PREFILL_LOGIT_RTOL = 1e-3
 
 
+# every emitted line is also written here: the kernels phase's line is too
+# long to read whole from the end of the standard output
+LOG_PATH = os.path.join(ROOT, "chiprun_out", "chip_smoke.jsonl")
+_log = []
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if _log:
+        _log[0].write(line + "\n")
+        _log[0].flush()
 
 
 def fail(msg: str) -> None:
@@ -443,6 +466,8 @@ def phase_kernels(torch, F):
                    page=16, pp=16, dtype="float32", profile=True),
         paged_case(torch, F, timer, "qwen2.5-14b decode bf16", B=8, nq=40, nkv=8, hd=128,
                    page=16, pp=128, dtype="bfloat16", seed=1, profile=True),
+        paged_case(torch, F, timer, "internlm2-1.8b decode bf16 (pd_full_width)", B=8, nq=16,
+                   nkv=8, hd=128, page=16, pp=128, dtype="bfloat16", seed=5, profile=True),
         paged_case(torch, F, timer, "qwen2.5-14b decode f32", B=8, nq=40, nkv=8, hd=128,
                    page=16, pp=128, dtype="float32", seed=2),
         paged_case(torch, F, timer, "int8 pool", B=8, nq=40, nkv=8, hd=128, page=16,
@@ -457,6 +482,12 @@ def phase_kernels(torch, F):
                    hd=32, dtype="float32", seed=1),
         flash_case(torch, F, timer, "vocoder cross-attn, last chunk", B=8, sq=16, sk=8,
                    nq=4, nkv=4, hd=32, dtype="float32", seed=2),
+        # the glm_image / bagel DiT: 64 latents over themselves and over the
+        # 32 AR tokens, up to 4 requests a batch in phase pipelines (full tiles)
+        flash_case(torch, F, timer, "glm_image DiT self-attn", B=4, sq=64, sk=64, nq=4,
+                   nkv=4, hd=32, dtype="float32", seed=20),
+        flash_case(torch, F, timer, "glm_image DiT cross-attn", B=4, sq=64, sk=32, nq=4,
+                   nkv=4, hd=32, dtype="float32", seed=21),
     ]
     s = 3
     for dtype in ("bfloat16", "float32"):
@@ -544,7 +575,7 @@ def serve_qwen_omni(torch, backend: str, *, greedy: bool, n_requests: int = 8, s
                                    engine_specs=bundle["engine_specs"])
     orch = Orchestrator(graph, engines, config=config)
     rng = np.random.default_rng(seed)
-    reqs = [Request(inputs=_make_inputs(rng)) for _ in range(n_requests)]
+    reqs = [Request(inputs=_make_inputs("qwen_omni", rng)) for _ in range(n_requests)]
     t0 = time.perf_counter()
     orch.start()
     for r in reqs:
@@ -623,6 +654,157 @@ def phase_qwen_omni(torch):
            "greedy_tokens_compared": sum(len(t) + sum(len(c) for c in ch)
                                          for t, ch in streams["cuda"])}
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase pipelines: the other pipelines at their builders' (tiny) sizes
+# ---------------------------------------------------------------------------
+
+PIPELINE_RUNS = ("qwen3_omni", "glm_image", "bagel", "epd", "mimo_audio")
+# the CNN vocoder on the card against its plain f32 version on the CPU
+CNN_TOL = 2e-5
+
+
+def plain_cnn_vocoder(torch, cond, w1, w2):
+    """The Qwen3-Omni CNN vocoder written out on the CPU in f32: two 3-tap
+    "SAME" convolutions as shifted products, the tanh GELU and a 2x repeat
+    in time between them.  cond (B, T, D), w (3, I, O)."""
+    def conv(x, w):
+        xp = torch.nn.functional.pad(x, (0, 0, 1, 1))
+        return xp[:, :-2] @ w[0] + xp[:, 1:-1] @ w[1] + xp[:, 2:] @ w[2]
+    x = conv(cond, w1)
+    x = 0.5 * x * (1.0 + torch.tanh((2.0 / torch.pi) ** 0.5 * (x + 0.044715 * x ** 3)))
+    return conv(x.repeat_interleave(2, dim=1), w2)
+
+
+def check_cnn_vocoder(torch, engine, w1, w2):
+    """One padded batch through the served vocoder engine on the card,
+    with cuDNN's global TF32 switch ON (the vocoder's convolutions are
+    matmuls, which that switch does not reach), held against
+    ``plain_cnn_vocoder`` at CNN_TOL."""
+    import numpy as np
+    g = torch.Generator().manual_seed(7)
+    lens = [16, 16, 9, 16, 3, 16, 12, 16]          # Talker chunks, the last ones short
+    conds = [torch.randn((n, w1.shape[1]), generator=g) for n in lens]
+    batch = [{"cond": c.numpy(), "chunk_index": i} for i, c in enumerate(conds)]
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        outs = engine.forward(batch)
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    padded = torch.zeros((len(lens), max(lens), w1.shape[1]))
+    for i, c in enumerate(conds):
+        padded[i, :len(c)] = c
+    want = plain_cnn_vocoder(torch, padded, w1.cpu(), w2.cpu())
+    err, ok = 0.0, True
+    for i, (o, n) in enumerate(zip(outs, lens)):
+        got = torch.as_tensor(np.asarray(o["latent"]))
+        w = want[i, :2 * n]
+        ok = ok and got.shape == w.shape and bool(got.isfinite().all())
+        d = (got - w).abs()
+        err = max(err, float(d.max()))
+        ok = ok and bool((d <= CNN_TOL + CNN_TOL * w.abs()).all())
+    if not ok:
+        fail(f"CNN vocoder latents differ from the plain f32 conv by {err} (tol {CNN_TOL})")
+    return {"cnn_vocoder_rows": len(lens), "cnn_vocoder_max_abs_err": err,
+            "cnn_vocoder_tol": CNN_TOL, "cnn_vocoder_cudnn_tf32_was_on": True}
+
+
+def build_pipeline(name: str):
+    from repro_torch.configs import pipelines as P
+    if name == "qwen3_omni":
+        return P.build_qwen_omni(vocoder_kind="cnn", device="cuda")
+    if name in ("glm_image", "bagel"):
+        return P.build_ar_dit(name, device="cuda")
+    if name == "epd":
+        return P.build_epd_disaggregated(device="cuda")
+    return P.build_mimo_audio(device="cuda")
+
+
+def pipeline_inputs(name: str, rng):
+    from repro_torch.launch.serve import _make_inputs
+    if name == "epd":
+        return {"frames": rng.standard_normal((int(rng.integers(6, 24)), 32))
+                .astype("float32")}
+    return _make_inputs(name, rng)
+
+
+def check_pipeline_outputs(name: str, reqs, bundle) -> None:
+    import numpy as np
+    if name == "qwen3_omni":
+        check_vocoder(reqs, bundle["talker_tokens"])
+        return
+    for r in reqs:
+        if name in ("glm_image", "bagel"):
+            outs, key = r.outputs[f"{name}_dit"], "latent"
+            shape = (bundle["image_latents"], 32)
+        elif name == "epd":
+            outs, key, shape = r.outputs["decode"], "tokens", (8,)   # the builder's max_new
+        else:
+            outs, key = r.outputs["patch_dec"], "audio"
+            shape = (bundle["ar_tokens"], bundle["patch"] * 16)
+        val = np.asarray(outs[0][key]) if len(outs) == 1 else None
+        if val is None or val.shape != shape or not np.isfinite(val).all():
+            fail(f"{name}: request {r.req_id} produced {len(outs)} outputs, "
+                 f"{None if val is None else val.shape} (want one of {shape})")
+
+
+def phase_pipelines(torch, n_requests=4, seed=0):
+    """qwen3_omni (CNN vocoder), glm_image, bagel, epd and mimo_audio, 4
+    requests each through the threaded Orchestrator with backend "cuda",
+    the kernels' launches counted per run."""
+    import argparse as _ap
+
+    import numpy as np
+
+    from repro_torch.core.config import ServeConfig
+    from repro_torch.core.metrics import summarize
+    from repro_torch.core.orchestrator import Orchestrator
+    from repro_torch.core.request import Request
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+
+    runs, launches = {}, {}
+    for name in PIPELINE_RUNS:
+        graph, engines, bundle = build_pipeline(name)
+        config = ServeConfig.from_args(_ap.Namespace(backend="threaded"),
+                                       engine_factories=bundle["engine_factories"],
+                                       engine_specs=bundle["engine_specs"])
+        orch = Orchestrator(graph, engines, config=config)
+        rng = np.random.default_rng(seed)
+        reqs = [Request(inputs=pipeline_inputs(name, rng)) for _ in range(n_requests)]
+        ops.set_backend("cuda")
+        pa.launches.reset()
+        fa.launches.reset()
+        t0 = time.perf_counter()
+        orch.start()
+        for r in reqs:
+            orch.submit(r)
+        orch.run(timeout=300.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = {"paged_attention": pa.launches.value, "flash_attention": fa.launches.value}
+        ops.set_backend("auto")
+        done = [r for r in reqs if r.completion_time is not None and not r.failed]
+        if len(done) != len(reqs):
+            fail(f"{name}: {len(done)}/{len(reqs)} requests completed: "
+                 f"{[r.failed for r in reqs if r.failed]}")
+        check_pipeline_outputs(name, reqs, bundle)
+        if n["paged_attention"] <= 0:
+            fail(f"{name}: the paged attention kernel was not launched")
+        if name in ("glm_image", "bagel") and n["flash_attention"] <= 0:
+            fail(f"{name}: the flash attention kernel (DiT) was not launched")
+        m = summarize(reqs, wall_time=wall)
+        runs[name] = {"requests": len(reqs), "completed": len(done), "wall_s": wall,
+                      "jct_p50_s": m["jct_p50"], "launches": n,
+                      "stages": sorted(graph.stages)}
+        if name == "qwen3_omni":
+            runs[name].update(check_cnn_vocoder(torch, engines["vocoder"], bundle["w1"],
+                                                bundle["w2"]))
+        launches[name] = n
+    return {"phase": "pipelines", "runs": runs}, launches
 
 
 # ---------------------------------------------------------------------------
@@ -719,40 +901,11 @@ def phase_full_width(torch, n_requests=8, max_new=32, seed=0):
     ttft = sorted(first_token[r.req_id] - r.arrival_time for r in reqs)
     jct = sorted(r.jct for r in reqs)
 
-    # one batched decode step, kernel vs plain attention, on the same pool
-    logits = {}
-    B = 8
-    page = runner.kv.page_size
-    positions = (np.asarray(lens) - 1).astype(np.int32)
-    tables = np.zeros((B, runner.kv.max_pages_per_seq), np.int32)
-    for s in range(B):       # fresh pages, filled by prefill of the same prompts
-        tables[s, :] = s * runner.kv.max_pages_per_seq + np.arange(
-            runner.kv.max_pages_per_seq)
-    for s in range(B):
-        n = int(lens[s])
-        for c0 in range(0, n - 1, 512):
-            c1 = min(c0 + 512, n - 1)
-            emb = runner.embed(reqs[s].inputs["tokens"][c0:c1])
-            runner.prefill_chunk(torch.as_tensor(emb, device="cuda")[None], tables[s],
-                                 c0, c1 - c0)
-    last = np.stack([runner.embed(reqs[s].inputs["tokens"][-1:])[0] for s in range(B)])
-    embeds = torch.as_tensor(last, device="cuda").to(torch.bfloat16)[:, None]
-    active = np.ones(B, bool)
-    for backend in ("cuda", "ref"):
-        ops.set_backend(backend)
-        lg, _ = runner.decode(embeds, tables, positions, active)
-        logits[backend] = lg.float()
-    torch.cuda.synchronize()
+    check, step = decode_step_check(torch, runner, [r.inputs["tokens"] for r in reqs],
+                                    "full width")
     ops.set_backend("cuda")       # three decode steps, after the warm-up above
-    _, busy = device_profile(torch, lambda: [runner.decode(embeds, tables, positions, active)
-                                             for _ in range(3)])
+    _, busy = device_profile(torch, lambda: [step() for _ in range(3)])
     ops.set_backend("auto")
-    diff = float((logits["cuda"] - logits["ref"]).abs().max())
-    scale = float(logits["ref"].abs().max())
-    agree = float((logits["cuda"].argmax(-1) == logits["ref"].argmax(-1)).float().mean())
-    if not (diff <= FULL_WIDTH_LOGIT_RTOL * scale and torch.isfinite(logits["cuda"]).all()):
-        fail(f"full width decode logits: max |cuda - ref| = {diff} > "
-             f"{FULL_WIDTH_LOGIT_RTOL} x {scale}")
     return {"phase": "full_width", "arch": arch, "d_model": cfg.d_model,
             "num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
             "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
@@ -769,9 +922,435 @@ def phase_full_width(torch, n_requests=8, max_new=32, seed=0):
             "decode_3_steps_profile": busy,
             "ttft_p50_s": ttft[len(ttft) // 2], "jct_p50_s": jct[len(jct) // 2],
             "jct_max_s": jct[-1], "paged_launches": launches,
-            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "decode_logits_max_abs_diff": diff, "decode_logits_max_abs": scale,
-            "decode_logits_rtol": FULL_WIDTH_LOGIT_RTOL, "decode_argmax_agree": agree}
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9, **check}
+
+
+def decode_step_check(torch, runner, prompts, what: str):
+    """One batched decode step of a PagedRunner, kernel vs plain attention,
+    on the same pool: each prompt but its last token is prefilled into
+    fresh pages (chunks of 512), then every row decodes its last token
+    with backend "cuda" and with "ref".  The logits are held to
+    FULL_WIDTH_LOGIT_RTOL of their largest magnitude.  Returns the
+    numbers and a function that runs the step again (for a profile)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    B = len(prompts)
+    lens = [len(p) for p in prompts]
+    positions = (np.asarray(lens) - 1).astype(np.int32)
+    pp = runner.kv.max_pages_per_seq
+    tables = np.zeros((B, pp), np.int32)
+    for s in range(B):       # fresh pages, filled by prefill of the same prompts
+        tables[s, :] = s * pp + np.arange(pp)
+    for s in range(B):
+        n = lens[s]
+        for c0 in range(0, n - 1, 512):
+            c1 = min(c0 + 512, n - 1)
+            emb = runner.embed(prompts[s][c0:c1])
+            runner.prefill_chunk(torch.as_tensor(emb, device=runner.device)[None],
+                                 tables[s], c0, c1 - c0)
+    last = np.stack([runner.embed(prompts[s][-1:])[0] for s in range(B)])
+    embeds = torch.as_tensor(last, device=runner.device).to(torch.bfloat16)[:, None]
+    active = np.ones(B, bool)
+    logits = {}
+    for backend in ("cuda", "ref"):
+        ops.set_backend(backend)
+        lg, _ = runner.decode(embeds, tables, positions, active)
+        logits[backend] = lg.float()
+    torch.cuda.synchronize()
+    ops.set_backend("auto")
+    diff = float((logits["cuda"] - logits["ref"]).abs().max())
+    scale = float(logits["ref"].abs().max())
+    agree = float((logits["cuda"].argmax(-1) == logits["ref"].argmax(-1)).float().mean())
+    if not (diff <= FULL_WIDTH_LOGIT_RTOL * scale and torch.isfinite(logits["cuda"]).all()):
+        fail(f"{what} decode logits: max |cuda - ref| = {diff} > "
+             f"{FULL_WIDTH_LOGIT_RTOL} x {scale}")
+    return ({"decode_logits_max_abs_diff": diff, "decode_logits_max_abs": scale,
+             "decode_logits_rtol": FULL_WIDTH_LOGIT_RTOL, "decode_argmax_agree": agree},
+            lambda: runner.decode(embeds, tables, positions, active))
+
+
+# ---------------------------------------------------------------------------
+# phase pd_full_width: InternLM2-1.8B, unified and PD-disaggregated
+# ---------------------------------------------------------------------------
+
+PD_ARCH = "internlm2_1_8b"
+SHM = "/dev/shm"
+
+
+def shm_usage() -> dict:
+    import shutil
+    u = shutil.disk_usage(SHM)
+    return {"path": SHM, "total_bytes": u.total, "used_bytes": u.used, "free_bytes": u.free}
+
+
+def kv_payload_bytes(cfg, n_tokens: int, page: int) -> int:
+    """Bytes of one request's prompt KV on the host: whole pages, K and V,
+    widened to f32 (numpy has no bf16)."""
+    return 2 * cfg.num_layers * (-(-n_tokens // page) * page) * cfg.num_kv_heads \
+        * cfg.head_dim * 4
+
+
+class GpuMemorySampler:
+    """nvidia-smi's memory.used of card 0, sampled every 0.25 s in a
+    thread while a run serves: it counts every process on the card."""
+
+    def __init__(self):
+        import threading
+        self.samples = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def _loop(self):
+        while not self._stop.is_set():
+            out = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=memory.used",
+                                  "--format=csv,noheader,nounits"], capture_output=True,
+                                 text=True)
+            if out.returncode == 0 and out.stdout.strip():
+                self.samples.append(float(out.stdout.strip().splitlines()[0]))
+            self._stop.wait(0.25)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+class PdTaps:
+    """Measurement taps on the engines of one run: when each request's
+    first token was sampled, the steps of the engine that decodes in this
+    process, and the KV hop's two ends (extract on the prefill engine,
+    inject on the decode engine).  A step is read off the engine's own
+    ``busy_time`` and ``steps``, as a spawned child reports them, and
+    counts as a decode step when it ran no prefill chunk; these taps add
+    no device sync.  ``verify_hop`` keeps a device copy of each request's
+    prefill pages at extraction and holds the decode engine's pages
+    against it, bit for bit, right after injection (one sync and one
+    compare per request)."""
+
+    def __init__(self, torch, *, sampler, stepper=None, prefill=None, inject=None,
+                 verify_hop=False):
+        self.torch = torch
+        self.first = {}
+        self.decode_s, self.decode_steps, self.decode_tokens = 0.0, 0, 0
+        self.extract_s, self.extract_n, self.extract_bytes = 0.0, 0, 0
+        self.inject_s, self.inject_n = 0.0, 0
+        self.hop_checked, self.hop_equal = 0, 0
+        self._stash = {}
+        self._undo = []
+        self._prefilled, self._active = False, 0
+        self._wrap(sampler, "_sample", self._sample)
+        if stepper is not None:
+            self._stepper = stepper
+            self._wrap(stepper, "step", self._step)
+            self._wrap(stepper.runner, "decode", self._decode)
+            if hasattr(stepper.runner, "prefill_chunk"):
+                self._wrap(stepper.runner, "prefill_chunk", self._prefill_chunk)
+        if prefill is not None:
+            self._wrap(prefill, "extract_kv", self._extract)
+        if inject is not None:
+            self._wrap(inject, "inject_kv", self._inject)
+        self.verify_hop = verify_hop
+        self._prefill, self._inject_runner = prefill, inject
+
+    def _wrap(self, obj, attr, tap):
+        inner = getattr(obj, attr)
+        self._undo.append((obj, attr, inner))
+        setattr(obj, attr, lambda *a: tap(inner, *a))
+
+    def undo(self):
+        for obj, attr, inner in reversed(self._undo):
+            setattr(obj, attr, inner)
+
+    def _sample(self, inner, req_id, logits):
+        tok = inner(req_id, logits)
+        self.first.setdefault(req_id, time.perf_counter())
+        return tok
+
+    def _step(self, inner):
+        eng = self._stepper
+        self._prefilled, self._active = False, 0
+        busy, steps = eng.busy_time, eng.steps
+        out = inner()
+        if eng.steps > steps and not self._prefilled:
+            self.decode_s += eng.busy_time - busy
+            self.decode_steps += 1
+            self.decode_tokens += self._active
+        return out
+
+    def _prefill_chunk(self, inner, *a):
+        self._prefilled = True
+        return inner(*a)
+
+    def _decode(self, inner, embeds, tables, positions, active):
+        import numpy as np
+        self._active = int(np.asarray(active).sum())
+        return inner(embeds, tables, positions, active)
+
+    @staticmethod
+    def _key(k_host, n_tokens):
+        return int(n_tokens), k_host[0, 0, 0, :8].tobytes()
+
+    def _pages(self, runner, block_table, n_tokens):
+        import numpy as np
+        n_pages = -(-int(n_tokens) // runner.kv.page_size)
+        bt = self.torch.as_tensor(np.asarray(block_table[:n_pages]), dtype=self.torch.long,
+                                  device=runner.device)
+        return runner.k_pages[:, bt], runner.v_pages[:, bt]
+
+    def _extract(self, inner, block_table, n_tokens):
+        t = time.perf_counter()
+        k, v = inner(block_table, n_tokens)
+        self.extract_s += time.perf_counter() - t
+        self.extract_n += 1
+        self.extract_bytes += k.nbytes + v.nbytes
+        if self.verify_hop:
+            kp, vp = self._pages(self._prefill, block_table, n_tokens)
+            self._stash[self._key(k, n_tokens)] = (kp.clone(), vp.clone())
+        return k, v
+
+    def _inject(self, inner, k_seed, v_seed, block_table, n_tokens):
+        import numpy as np
+        t = time.perf_counter()
+        inner(k_seed, v_seed, block_table, n_tokens)
+        self.torch.cuda.synchronize()
+        self.inject_s += time.perf_counter() - t
+        self.inject_n += 1
+        if self.verify_hop:
+            want = self._stash.pop(self._key(np.asarray(k_seed), n_tokens), None)
+            self.hop_checked += 1
+            if want is not None:
+                kp, vp = self._pages(self._inject_runner, block_table, n_tokens)
+                self.hop_equal += int(self.torch.equal(kp, want[0])
+                                      and self.torch.equal(vp, want[1]))
+
+
+def serve_pd_run(torch, label, graph, engines, make_reqs, *, out_stage, config=None, taps,
+                 process_stage=None, busy_engine=None):
+    """Serve ``reqs`` through one graph with the threaded Orchestrator and
+    backend "cuda", paged launches counted from 0 (in this process; a
+    process stage's child reports its own).  A process stage's child is
+    started and waited for before the requests are submitted, so that
+    its start-up stays out of the requests' times: ``make_reqs()`` builds
+    the requests (which stamp their arrival) just before they are sent.
+    Every run is measured the same way: the decoding engine's own busy
+    time and steps (``busy_engine`` here, the child's status for a
+    process stage) and nvidia-smi sampled from submission to the end."""
+    from repro_torch.core.metrics import summarize, summarize_queueing
+    from repro_torch.core.orchestrator import Orchestrator
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    orch = Orchestrator(graph, engines, config=config)
+    ops.set_backend("cuda")
+    pa.launches.reset()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"run": label}
+    worker = None
+    t_start = time.perf_counter()
+    orch.start()
+    if process_stage is not None:
+        worker = orch._workers[process_stage].workers()[0][1]
+        deadline = time.perf_counter() + worker.ready_timeout
+        while not worker.wait_ready(timeout=0.5):
+            if worker.failed or worker.error or time.perf_counter() > deadline:
+                orch.shutdown(drain=False)
+                fail(f"pd {label}: the {process_stage} child did not start "
+                     f"({worker.failure_reason}): {worker.error}")
+        out["child_ready_s"] = worker.ready_s
+        out["child_start_to_ready_s"] = time.perf_counter() - t_start
+    sampler = GpuMemorySampler().__enter__()
+    reqs = make_reqs()
+    t0 = time.perf_counter()
+    try:
+        for r in reqs:
+            orch.submit(r)
+        orch.run(timeout=600.0)
+        torch.cuda.synchronize()
+    finally:
+        sampler.__exit__()
+        taps.undo()
+        ops.set_backend("auto")
+    wall = time.perf_counter() - t0
+    done = [r for r in reqs if r.completion_time is not None and not r.failed]
+    if len(done) != len(reqs):
+        fail(f"pd {label}: {len(done)}/{len(reqs)} requests completed: "
+             f"{[r.failed for r in reqs if r.failed]}")
+    streams = [[int(t) for t in r.outputs[out_stage][0]["tokens"]] for r in reqs]
+    m = summarize(reqs, wall_time=wall)
+    ttft = sorted(taps.first[r.req_id] - r.arrival_time for r in reqs)
+    out.update({"requests": len(reqs), "completed": len(done), "wall_s": wall,
+                "jct_p50_s": m["jct_p50"], "jct_p95_s": m["jct_p95"],
+                "ttft_p50_s": ttft[len(ttft) // 2],
+                "paged_launches": pa.launches.value,
+                "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "nvidia_smi_memory_used_mib_max": max(sampler.samples, default=None),
+                "nvidia_smi_samples": len(sampler.samples)})
+    generated = sum(len(s) for s in streams) - len(reqs)    # tokens after the first
+    if busy_engine is not None:
+        busy_s, steps = busy_engine.busy_time, busy_engine.steps
+        dec_s, dec_steps, dec_tok = taps.decode_s, taps.decode_steps, taps.decode_tokens
+    else:                    # the child: its engine runs no prefill chunk
+        st = worker.status
+        busy_s, steps = st["busy_time"], st["engine_steps"]
+        dec_s, dec_steps, dec_tok = busy_s, steps, generated
+    out.update({"engine_steps": steps, "engine_busy_s": busy_s,
+                "engine_ms_per_step": 1e3 * busy_s / max(steps, 1),
+                "engine_tok_per_busy_s": generated / busy_s,
+                "decode_steps": dec_steps, "decode_tokens": dec_tok,
+                "decode_ms_per_step": 1e3 * dec_s / max(dec_steps, 1),
+                "decode_tok_per_s": dec_tok / dec_s})
+    if "shm" in orch.connector_stats():
+        st = orch.connector_stats()["shm"]
+        q = summarize_queueing(reqs).get("decode", {})
+        out.update({
+            "connector": {"transfers": st.calls, "bytes": st.bytes,
+                          "wall_ms": 1e3 * st.wall_time},
+            "kv_bytes_per_request": taps.extract_bytes / max(taps.extract_n, 1),
+            "extract_ms_per_request": 1e3 * taps.extract_s / max(taps.extract_n, 1),
+            "connector_ms_per_request": 1e3 * st.wall_time / max(st.calls, 1),
+            "decode_queue_delay_p50_ms": 1e3 * q.get("p50", float("nan")),
+            "decode_queue_delay_p95_ms": 1e3 * q.get("p95", float("nan"))})
+        # the hop from the prefill engine's pool to the decode engine's
+        # admission: extraction, then the decode stage's queue delay (the
+        # connector's recv and, for a process stage, the segment written
+        # for the child, the control queue and the child's read)
+        out["hop_to_admission_ms_p50"] = (out["extract_ms_per_request"]
+                                          + out["decode_queue_delay_p50_ms"])
+        out["hop_to_admission_share_of_jct_p50"] = (1e-3 * out["hop_to_admission_ms_p50"]
+                                                    / m["jct_p50"])
+        if taps.inject_n:
+            out["inject_ms_per_request"] = 1e3 * taps.inject_s / taps.inject_n
+            out["hop_ms_per_request"] = (out["extract_ms_per_request"]
+                                         + out["connector_ms_per_request"]
+                                         + out["inject_ms_per_request"])
+            out["hop_share_of_jct_p50"] = 1e-3 * out["hop_ms_per_request"] / m["jct_p50"]
+    if worker is not None:
+        st = worker.status
+        out.update({"child_device": st.get("device"),
+                    "child_paged_launches": st.get("kernel_launches", {}).get(
+                        "paged_attention", 0),
+                    "child_loop_steps": st.get("steps"),
+                    "replica_failures": orch.stage_metrics()[process_stage][
+                        "replica_failures"]})
+    return out, streams
+
+
+def stream_agreement(a, b) -> dict:
+    same = sum(x == y for x, y in zip(a, b))
+    prefix = []
+    for x, y in zip(a, b):
+        n = 0
+        while n < min(len(x), len(y)) and x[n] == y[n]:
+            n += 1
+        prefix.append(n)
+    return {"identical_streams": same, "of": len(a),
+            "mean_common_prefix": sum(prefix) / len(prefix)}
+
+
+def phase_pd_full_width(torch, n_requests=8, max_new=32, seed=0):
+    """InternLM2-1.8B at its published width and depth served three ways
+    on the same weights: a unified one-stage engine; PD disaggregation
+    with thread stages and the shm connector; the same with the decode
+    stage in a spawned process rebuilt from its EngineSpec."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.pipelines import _kv, build_pd_disaggregated
+    from repro_torch.core.config import ServeConfig, StageConfig
+    from repro_torch.core.graph import StageGraph
+    from repro_torch.core.request import Request
+    from repro_torch.core.stage import StageSpec
+    from repro_torch.engine.ar_engine import AREngine
+    from repro_torch.engine.sampling import SamplingParams
+
+    cfg = get_config(PD_ARCH)
+    max_batch, max_seq = 8, 2048
+    _free(torch)
+    t_init = time.perf_counter()
+    graph, engines, bundle = build_pd_disaggregated(
+        cfg, max_batch=max_batch, max_new=max_new, temperature=0.0, connector="shm",
+        seed=seed, max_seq=max_seq, device="cuda")
+    params = bundle["params"]
+    unified = AREngine("unified", cfg, params, kv=_kv(max_batch, max_seq), max_batch=max_batch,
+                       default_sampling=SamplingParams(max_new_tokens=max_new, temperature=0.0),
+                       seed=seed)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t_init
+    page = unified.runner.kv.page_size
+    rng = np.random.default_rng(seed)            # phase 5's prompt lengths
+    lens = rng.integers(128, 1537, size=n_requests)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32) for n in lens]
+
+    # /dev/shm holds each KV payload twice at most while it crosses into
+    # the child (the connector's segment and the child's); all of them
+    # may be in flight at once
+    shm = shm_usage()
+    payloads = [kv_payload_bytes(cfg, int(n), page) for n in lens]
+    need = 2 * sum(payloads)
+    shm.update({"largest_payload_bytes": max(payloads), "all_payloads_bytes": sum(payloads),
+                "needed_bytes": need})
+    print(f"/dev/shm: {shm}", flush=True)
+    if shm["free_bytes"] < need:
+        fail(f"pd_full_width: /dev/shm has {shm['free_bytes']} bytes free, the process "
+             f"run needs {need} (two copies of every request's f32 KV in flight)")
+
+    def reqs():
+        return [Request(inputs={"tokens": p}) for p in prompts]
+
+    ug = StageGraph()
+    ug.add_stage(StageSpec("unified", "ar", is_output=True))
+    runs, streams = {}, {}
+    taps = PdTaps(torch, sampler=unified, stepper=unified)
+    runs["unified"], streams["unified"] = serve_pd_run(
+        torch, "unified", ug, {"unified": unified}, reqs, out_stage="unified", taps=taps,
+        busy_engine=unified)
+    taps = PdTaps(torch, sampler=engines["prefill"], stepper=engines["decode"],
+                  prefill=engines["prefill"].runner, inject=engines["decode"].runner,
+                  verify_hop=True)
+    runs["pd_thread"], streams["pd_thread"] = serve_pd_run(
+        torch, "pd_thread", graph, engines, reqs, out_stage="decode", taps=taps,
+        busy_engine=engines["decode"])
+    runs["pd_thread"]["hop_bitwise_equal"] = taps.hop_equal
+    runs["pd_thread"]["hop_checked"] = taps.hop_checked
+    if not taps.hop_checked == taps.hop_equal == n_requests:
+        fail(f"pd_full_width: the decode engine's injected pages equal the prefill "
+             f"engine's for {taps.hop_equal} of {taps.hop_checked} requests "
+             f"(want {n_requests} of {n_requests})")
+    config = ServeConfig(stages={"decode": StageConfig(
+        isolation="process", engine_spec=bundle["engine_specs"]["decode"])})
+    taps = PdTaps(torch, sampler=engines["prefill"], prefill=engines["prefill"].runner)
+    runs["pd_process"], streams["pd_process"] = serve_pd_run(
+        torch, "pd_process", graph, engines, reqs, out_stage="decode", config=config,
+        taps=taps, process_stage="decode")
+    child = runs["pd_process"]
+    if not str(child["child_device"]).startswith("cuda") or child["child_paged_launches"] <= 0:
+        fail(f"pd_full_width: the decode child ran on {child['child_device']} with "
+             f"{child['child_paged_launches']} paged launches")
+    if child["replica_failures"]:
+        fail(f"pd_full_width: {child['replica_failures']} decode replica failures")
+
+    firsts = {k: [s[0] for s in v] for k, v in streams.items()}
+    if not firsts["unified"] == firsts["pd_thread"] == firsts["pd_process"]:
+        fail(f"pd_full_width: first tokens differ: {firsts}")
+    for k, v in streams.items():
+        if any(len(s) != max_new for s in v):
+            fail(f"pd_full_width {k}: streams of {[len(s) for s in v]} tokens")
+    agreement = {f"{a}~{b}": stream_agreement(streams[a], streams[b])
+                 for a, b in (("unified", "pd_thread"), ("pd_thread", "pd_process"),
+                              ("unified", "pd_process"))}
+    check, _ = decode_step_check(torch, engines["decode"].runner, prompts, "pd_full_width")
+    return {"phase": "pd_full_width", "arch": PD_ARCH, "source": cfg.source,
+            "layers": cfg.num_layers, "d_model": cfg.d_model, "num_heads": cfg.num_heads,
+            "num_kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+            "params": sum(t.numel() for t in _leaves(params)), "init_s": t_init,
+            "page": page, "max_seq": max_seq, "max_batch": max_batch,
+            "prompt_lens": [int(n) for n in lens], "new_tokens": max_new, "shm": shm,
+            "runs": runs, "first_tokens_equal": True, "stream_agreement": agreement,
+            **check}
 
 
 # ---------------------------------------------------------------------------
@@ -1105,6 +1684,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, SRC)
     import torch.nn.functional as F
+    os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+    _log.append(open(LOG_PATH, "w"))
 
     from repro_torch.kernels import build
 
@@ -1150,9 +1731,19 @@ def main() -> int:
     emit(omni)
 
     t = time.perf_counter()
+    pipes, pipe_launches = phase_pipelines(torch)
+    pipes["seconds"] = time.perf_counter() - t
+    emit(pipes)
+
+    t = time.perf_counter()
     full = phase_full_width(torch)
     full["seconds"] = time.perf_counter() - t
     emit(full)
+
+    t = time.perf_counter()
+    pd = phase_pd_full_width(torch)
+    pd["seconds"] = time.perf_counter() - t
+    emit(pd)
 
     t = time.perf_counter()
     ssm = phase_ssm_full_width(torch)
@@ -1165,11 +1756,20 @@ def main() -> int:
     emit(hybrid)
 
     # launches of each kernel in the runs that use it, each counted from 0
+    # (the decode child of pd_full_width counts its own and reports them)
     by_run = {"paged_attention": {"qwen_omni": launches["paged_attention"],
                                   "full_width": full["paged_launches"]},
               "flash_attention": {"qwen_omni": launches["flash_attention"],
                                   "hybrid": hybrid["launches"]},
               "mamba1_scan": {"ssm_full_width": ssm["launches"]}}
+    for name, n in pipe_launches.items():
+        for k in ("paged_attention", "flash_attention"):
+            if n[k]:
+                by_run[k][f"pipelines.{name}"] = n[k]
+    for run, r in pd["runs"].items():
+        by_run["paged_attention"][f"pd_full_width.{run}"] = r["paged_launches"]
+    by_run["paged_attention"]["pd_full_width.pd_process.child"] = \
+        pd["runs"]["pd_process"]["child_paged_launches"]
     kernels = []
     for name, meta in KERNEL_META.items():
         # the first case is the shape the main path gives the kernel most

@@ -36,9 +36,10 @@ replicas.  A pluggable routing policy picks the replica per item:
     already holding the pages; falls back to least-loaded when no replica
     holds anything (or the stage cannot prefix-cache the item).
 
-``scale_up(stage)`` / ``scale_down(stage)`` move replicas at runtime
-(paper §3.2, flexible resource allocation); the metrics-driven scaling
-controller that calls them waits for its slice of the port.
+``scale_up(stage)`` / ``scale_down(stage)`` move replicas at runtime —
+the scaling controller (repro_torch.core.scaling) drives them from
+WorkerMetrics snapshots under a global replica budget (paper §3.2,
+flexible resource allocation).
 """
 from __future__ import annotations
 

@@ -391,12 +391,11 @@ class ReplicaSet:
                  process_opts: Optional[Dict[str, Any]] = None) -> None:
         if isolation not in ("thread", "process"):
             raise ValueError(f"unknown isolation {isolation!r}")
-        if isolation == "process":
-            raise NotImplementedError(
-                f"stage {stage!r}: isolation='process' (spawned replica "
-                f"processes) is not ported to repro_torch yet; serve the "
-                f"stage with isolation='thread'")
-        if not engines:
+        if isolation == "process" and engine_spec is None:
+            raise ValueError(
+                f"stage {stage!r}: isolation='process' needs an "
+                f"engine_spec (picklable 'module:callable' recipe)")
+        if not engines and isolation != "process":
             raise ValueError(f"stage {stage!r} needs at least one engine")
         self.stage = stage
         self.emit = emit
@@ -429,15 +428,27 @@ class ReplicaSet:
         self._rr = 0                         # guarded-by: _lock (rr cursor)
         self._seed_seq = 0                   # guarded-by: _lock (seed keys)
         self._started = False                # guarded-by: _lock
-        for rid, eng in enumerate(engines):
-            self._install(rid, eng)
+        if isolation == "process":
+            for rid in range(n_replicas or max(1, len(engines))):
+                self._install(rid, None)
+        else:
+            for rid, eng in enumerate(engines):
+                self._install(rid, eng)
 
     def _install(self, rid: int, engine: Any,
                  routable: bool = True) -> Any:  # requires-lock: _lock
         metrics = self.metrics_bank.setdefault(rid, WorkerMetrics())
         label = f"{self.stage}#{rid}"
-        w = StageWorker(self.stage, engine, self.emit,
-                        capacity=self.capacity, metrics=metrics, label=label)
+        if self.isolation == "process":
+            from repro_torch.core.proc_worker import ProcessStageWorker
+            w: Any = ProcessStageWorker(
+                self.stage, self.engine_spec, self.emit,
+                capacity=self.capacity, metrics=metrics, label=label,
+                on_failure=self._on_replica_failure, **self.process_opts)
+        else:
+            w = StageWorker(self.stage, engine, self.emit,
+                            capacity=self.capacity, metrics=metrics,
+                            label=label)
         self._replicas[rid] = w
         if routable:
             self._order.append(rid)
@@ -649,11 +660,14 @@ class ReplicaSet:
 
     def scale_up(self, engine: Any = None) -> Optional[int]:
         """Add one replica (given engine, a fresh one from the stage
-        factory); returns its replica id, or None without a
+        factory, or — process isolation — a spawned worker built from the
+        stage's engine spec); returns its replica id, or None without a
         source.  With ``warm_seed`` the new engine's prefix cache is
         seeded from the sibling holding the most indexed pages before it
         joins the routing set, so its first requests already score
         affinity hits."""
+        if self.isolation == "process":
+            return self._scale_up_process()
         if engine is None:
             if self.engine_factory is None:
                 return None
@@ -668,6 +682,26 @@ class ReplicaSet:
                 self.seed_events.append({"rid": rid, **seed})
         if started:
             w.start()
+        return rid
+
+    def _scale_up_process(self) -> Optional[int]:
+        """Spawned replicas join in two steps: install unrouted + start
+        (the child needs to be live before the warm-seed RPC), then seed,
+        then make routable."""
+        with self._lock:
+            rid = next(i for i in range(len(self._replicas) + 1)
+                       if i not in self._replicas)
+            w = self._install(rid, None, routable=False)
+            started = self._started
+        seed = None
+        if started:
+            w.start()
+            if w.wait_ready(timeout=180.0) and self.warm_seed:
+                seed = self._warm_seed(w.engine)
+        with self._lock:
+            self._order.append(rid)
+            if seed is not None:
+                self.seed_events.append({"rid": rid, **seed})
         return rid
 
     def scale_down(self, drain: bool = True) -> Optional[int]:

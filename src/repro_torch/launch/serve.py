@@ -1,10 +1,12 @@
 """Serving launcher of the PyTorch port (runs on the card by default).
 
-Two modes:
+Three modes:
   - pipeline (offline): serve an any-to-any stage-graph pipeline through
     the per-stage-worker backend, batch-submitted at t=0
       PYTHONPATH=src python -m repro_torch.launch.serve --pipeline qwen_omni \
           --requests 8 --max-batch 4
+    pipelines: qwen_omni, qwen3_omni (CNN vocoder), glm_image, mimo_audio,
+    pd (prefill -> decode, prompt KV over the connector)
   - pipeline --online: Poisson arrivals + admission control + streaming
     result consumption — each stage batches independently in its own
     worker thread while the front-end keeps admitting
@@ -29,7 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import get_config
-from repro_torch.configs.pipelines import _kv, build_qwen_omni
+from repro_torch.configs.pipelines import (_kv, build_ar_dit, build_mimo_audio,
+                                           build_pd_disaggregated, build_qwen_omni)
 from repro_torch.core.config import ServeConfig
 from repro_torch.core.graph import StageGraph
 from repro_torch.core.metrics import stage_report, summarize, summarize_queueing
@@ -66,12 +69,14 @@ def build_single_arch(arch: str, max_batch: int, max_new: int, seed: int = 0,
         "cfg": cfg, "params": params, "engine_factories": {arch: make_engine}}
 
 
-def _make_inputs(rng):
+def _make_inputs(pipeline, rng):
+    if pipeline == "mimo_audio":
+        return {"audio": rng.standard_normal((32, 16)).astype(np.float32)}
     return {"tokens": rng.integers(0, 200, size=int(
         rng.integers(6, 24))).astype(np.int32)}
 
 
-def serve_online(orch: Orchestrator, *, n_requests: int,
+def serve_online(orch: Orchestrator, pipeline=None, *, n_requests: int,
                  rate_hz: float, max_inflight: int, seed: int = 0,
                  time_limit: float = 300.0, verbose: bool = True):
     """Online front-end: Poisson arrivals, admission control (at most
@@ -84,7 +89,7 @@ def serve_online(orch: Orchestrator, *, n_requests: int,
     rng = np.random.default_rng(seed)
     arrivals = np.cumsum(rng.exponential(1.0 / max(rate_hz, 1e-9),
                                          size=n_requests))
-    inputs = [_make_inputs(rng) for _ in range(n_requests)]
+    inputs = [_make_inputs(pipeline, rng) for _ in range(n_requests)]
 
     orch.start()
     t0 = time.perf_counter()
@@ -125,10 +130,45 @@ def serve_online(orch: Orchestrator, *, n_requests: int,
     return reqs, wall
 
 
+_EPILOG = """\
+serving configuration (ServeConfig):
+  Every flag below the line funnels through ServeConfig.from_args into
+  one typed, validated config object — the same API library callers use:
+
+      from repro_torch.core.config import ServeConfig, StageConfig, EngineSpec
+      config = ServeConfig(
+          backend="threaded", routing="affinity", queue_capacity=64,
+          stages={"decode": StageConfig(
+              replicas=2, isolation="process",
+              engine_spec=EngineSpec(
+                  "repro_torch.configs.pipelines:build_stage_engine",
+                  {"pipeline": "pd", "stage": "decode"}))})
+      orch = Orchestrator(graph, engines, config=config)
+
+  isolation="process" serves a stage from spawned OS processes, each of
+  which rebuilds its engine from the spec on the spec's device: request
+  tensors travel through named shared-memory segments, a dead replica is
+  detected by heartbeat and its in-flight requests re-admitted to the
+  survivors.
+
+examples:
+  # 2 talker replicas, affinity routing
+  python -m repro_torch.launch.serve --pipeline qwen_omni --requests 16 \\
+      --replicas talker=2
+
+  # decode stage in its own process, 5s recv timeout
+  python -m repro_torch.launch.serve --pipeline pd --requests 8 \\
+      --isolation decode=process --recv-timeout 5
+"""
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(
-        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--pipeline", default=None, choices=[None, "qwen_omni"])
+        description=__doc__, epilog=_EPILOG,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--pipeline", default=None,
+                    choices=[None, "qwen_omni", "qwen3_omni", "glm_image",
+                             "mimo_audio", "pd"])
     ap.add_argument("--arch", default=None,
                     help="serve one dense, SSM or hybrid architecture's "
                          "SMOKE_CONFIG")
@@ -164,8 +204,11 @@ def main() -> None:
                     help="replica routing policy (default affinity)")
     ap.add_argument("--isolation", default=None,
                     metavar="STAGE=MODE[,..]|MODE",
-                    help="replica isolation per stage; only 'thread' is "
-                         "ported so far")
+                    help="replica isolation per stage (thread|process), "
+                         "e.g. --isolation decode=process; a bare mode "
+                         "applies to every stage. process replicas run "
+                         "in spawned workers with shared-memory tensor "
+                         "transport (threaded backend only)")
     ap.add_argument("--queue-capacity", dest="queue_capacity", type=int,
                     default=64,
                     help="bounded per-stage worker inbox (backpressure)")
@@ -175,6 +218,16 @@ def main() -> None:
     ap.add_argument("--no-warm-seed", dest="warm_seed",
                     action="store_false", default=True,
                     help="disable warm-seeding scaled-up replicas")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="run the ScalingController: move replicas to the "
+                         "bottleneck stage at runtime from WorkerMetrics "
+                         "(busy fraction + backlog pressure)")
+    ap.add_argument("--replica-budget", type=int, default=None,
+                    help="--autoscale global replica budget (default: the "
+                         "total launched replicas; extra headroom lets the "
+                         "controller ADD replicas instead of moving them)")
+    ap.add_argument("--scale-interval", type=float, default=0.25,
+                    help="--autoscale decision window in seconds")
     args = ap.parse_args()
 
     if args.replicas and args.backend != "threaded":
@@ -183,12 +236,30 @@ def main() -> None:
         ap.error("--isolation requires --backend threaded")
     if args.online and args.backend != "threaded":
         ap.error("--online requires --backend threaded")
+    if args.autoscale and args.backend != "threaded":
+        ap.error("--autoscale requires --backend threaded")
     device = resolve_device(args.device)
 
     if args.pipeline == "qwen_omni":
         graph, engines, bundle = build_qwen_omni(
             max_batch=args.max_batch, prefix_cache=args.prefix_cache,
             device=device)
+    elif args.pipeline == "qwen3_omni":
+        graph, engines, bundle = build_qwen_omni(
+            max_batch=args.max_batch, vocoder_kind="cnn",
+            prefix_cache=args.prefix_cache, device=device)
+    elif args.pipeline == "glm_image":
+        graph, engines, bundle = build_ar_dit(
+            "glm_image", max_batch=args.max_batch,
+            prefix_cache=args.prefix_cache, device=device)
+    elif args.pipeline == "mimo_audio":
+        graph, engines, bundle = build_mimo_audio(
+            max_batch=args.max_batch, prefix_cache=args.prefix_cache,
+            device=device)
+    elif args.pipeline == "pd":
+        graph, engines, bundle = build_pd_disaggregated(
+            max_batch=args.max_batch, max_new=args.max_new,
+            prefix_cache=args.prefix_cache, device=device)
     elif args.arch:
         graph, engines, bundle = build_single_arch(
             args.arch, args.max_batch, args.max_new, args.seed,
@@ -203,11 +274,17 @@ def main() -> None:
         orch = Orchestrator(graph, engines, config=config)
     except ValueError as e:
         ap.error(str(e))
+    scaler = None
+    if args.autoscale:
+        from repro_torch.core.scaling import ScalingConfig, ScalingController
+        scaler = ScalingController(orch, ScalingConfig(
+            interval=args.scale_interval,
+            replica_budget=args.replica_budget)).start()
     rng = np.random.default_rng(args.seed)
 
     if args.online:
         reqs, wall = serve_online(
-            orch, n_requests=args.requests,
+            orch, args.pipeline, n_requests=args.requests,
             rate_hz=args.rate, max_inflight=args.max_inflight,
             seed=args.seed)
     else:
@@ -216,7 +293,7 @@ def main() -> None:
             orch.start()          # admissions route through stage workers
         reqs = []
         for _ in range(args.requests):
-            reqs.append(Request(inputs=_make_inputs(rng)))
+            reqs.append(Request(inputs=_make_inputs(args.pipeline, rng)))
             orch.submit(reqs[-1])
         orch.run()
         wall = time.perf_counter() - t0
@@ -234,9 +311,20 @@ def main() -> None:
         if qd:
             print("per-request queueing delay:",
                   {k: f"p95={v['p95']*1e3:.2f}ms" for k, v in qd.items()})
-        if args.replicas or args.isolation:
+        if args.replicas or args.isolation or args.autoscale:
             print("replicas:", orch.replica_counts(),
                   f"routing={args.routing}")
+        if scaler is not None:
+            print(f"autoscale: {scaler.windows} windows, "
+                  f"{len(scaler.action_log())} action(s)")
+            for a in scaler.action_log():
+                src = f" from {a['donor']}" if "donor" in a else ""
+                seed = (f" warm-seeded {a['warm_seed']['pages']} pages"
+                        if "warm_seed" in a else "")
+                print(f"  {a['kind']} -> {a['stage']}{src} "
+                      f"(pressure={a['pressure']:.2f} "
+                      f"busy={a['busy']:.2f} backlog={a['backlog']:.0f}) "
+                      f"replicas={a['replicas']}{seed}")
     else:
         print("stage busy:", {k: round(v, 3)
                               for k, v in orch.stage_busy_times().items()})

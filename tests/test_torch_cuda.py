@@ -375,3 +375,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         ms.mamba1_scan(x, dt.bfloat16(), A, B, C, D)
     with pytest.raises(ValueError, match="f32"):
         ms.mamba1_scan(x, dt, A.bfloat16(), B, C, D)
+
+
+def test_cnn_vocoder_conv_stays_f32_with_cudnn_tf32_on(cuda, monkeypatch):
+    """The Qwen3-Omni CNN vocoder's 3-tap convolution keeps f32 precision
+    on the card with cuDNN's TF32 switch on: at this width one TF32
+    product per term would miss the f32 tolerance by far."""
+    from repro_torch.configs import pipelines as P
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    x = torch.randn((4, 16, 128), generator=cuda, device="cuda")
+    w = 0.05 * torch.randn((3, 128, 128), generator=cuda, device="cuda")
+    got = P._conv1d_same(x, w)
+    want = torch.nn.functional.conv1d(x.double().cpu().transpose(1, 2),
+                                      w.double().cpu().permute(2, 1, 0), padding=1)
+    torch.testing.assert_close(got.cpu(), want.transpose(1, 2).float(), rtol=2e-5, atol=2e-5)

@@ -114,7 +114,9 @@ def test_builder_draws_its_own_weights_deterministically():
 
 
 def test_process_isolation_is_refused_clearly():
-    with pytest.raises(NotImplementedError, match="isolation='process'"):
+    """A process stage rebuilds its engine in a spawned child: without a
+    picklable engine_spec there is nothing to rebuild from."""
+    with pytest.raises(ValueError, match="isolation='process' needs an engine_spec"):
         ReplicaSet("talker", [], lambda *_: None, isolation="process")
 
 
@@ -181,6 +183,18 @@ def test_serve_cli_on_cpu():
     r = _cli("--pipeline", "qwen_omni", "--device", "cpu", "--requests", "2")
     assert r.returncode == 0, r.stderr
     assert "completed 2/2 requests" in r.stdout
+
+
+@pytest.mark.parametrize("args", [
+    ("--pipeline", "pd", "--isolation", "decode=process"),
+    ("--pipeline", "qwen3_omni"),
+])
+def test_serve_cli_other_pipelines_on_cpu(args):
+    r = _cli(*args, "--device", "cpu", "--requests", "2")
+    assert r.returncode == 0, r.stderr
+    assert "completed 2/2 requests" in r.stdout
+    if "--isolation" in args:
+        assert "replicas: {'prefill': 1, 'decode': 1}" in r.stdout
 
 
 def test_serve_cli_refuses_missing_card():
