@@ -25,6 +25,11 @@ Phases, each printing one JSON line with its wall time:
                 backend "cuda" and backend "ref", whose Thinker and Talker
                 tokens must be identical; then 8 requests as the CLI serves
                 them with the backend forced to "cuda" (launches counted);
+  4a. monolithic — the paper's baseline (``baselines/monolithic.py``: one
+                request at a time, prefill then batch-1 decode, then the
+                DiT vocoder) on the qwen_omni bundle and phase 4's 8
+                requests (flash launches counted), and one Thinker prefill
+                with backend "cuda" against "ref";
   4b. pipelines — qwen3_omni (CNN vocoder), glm_image, bagel, epd and
                 mimo_audio at their builders' sizes, 4 requests each
                 (completion, output shapes, launches per run), and the CNN
@@ -38,8 +43,11 @@ Phases, each printing one JSON line with its wall time:
                 disaggregation with thread stages and the shm connector
                 (the prompt KV's hop held bit for bit), and the same with
                 the decode stage in a spawned process (its device and
-                paged launches read from its status); first tokens equal,
-                one batched decode step with backend "cuda" against "ref";
+                paged launches and KV inject time read from its status);
+                bf16 KV crosses as its bits (the connector's bytes held
+                to half the f32 size), every stream equal across the
+                three runs, one batched decode step with backend "cuda"
+                against "ref";
   6. ssm_full_width — Falcon-Mamba-7B at its published width and depth (64
                 Mamba1 layers) served the same way through StateRunner
                 (8 requests of 128-1536 tokens, 32 greedy tokens, scan
@@ -52,7 +60,14 @@ Phases, each printing one JSON line with its wall time:
                 the same way (4 requests, 16 greedy tokens, flash launches
                 counted), then one whole-prompt prefill (the shortest
                 prompt: the plain Mamba2 scan launches per step) under the
-                profiler.
+                profiler;
+  8. moe_full_width — Qwen3-30B-A3B at its published width and depth (48
+                layers, 128 experts top-8) served as phase 5 serves the
+                14B (dropped (token, expert) pairs per prefill chunk and
+                decode step, peak memory, decode ms per step beside the
+                expert weights' byte bound), then one batched decode step
+                with backend "cuda" against "ref" and three profiled
+                decode steps.
 Every JSON line is also written to ``chiprun_out/chip_smoke.jsonl``.
 Then the ``{"kernels": [...]}`` line (launch counts of the runs that use
 each kernel, each counted from 0) and, last, ``{"ok": true, "device":
@@ -474,6 +489,9 @@ def phase_kernels(torch, F):
                    pp=128, dtype="bfloat16", quant=True, seed=3),
         paged_case(torch, F, timer, "window 512", B=8, nq=40, nkv=8, hd=128, page=16,
                    pp=128, dtype="bfloat16", window=512, seed=4),
+        # GQA 8:1, two blocks of 4 query heads per KV head
+        paged_case(torch, F, timer, "qwen3-30b-a3b decode bf16 (moe_full_width)", B=8, nq=32,
+                   nkv=4, hd=128, page=16, pp=128, dtype="bfloat16", seed=6, profile=True),
     ]
     flash = [
         flash_case(torch, F, timer, "vocoder self-attn", B=8, sq=32, sk=32, nq=4, nkv=4,
@@ -512,6 +530,10 @@ def phase_kernels(torch, F):
     flash.append(flash_case(torch, F, timer, "GQA g 5 f32 window 128, 300 rows over 1000 keys",
                             B=2, sq=300, sk=1000, nq=40, nkv=8, hd=128, dtype="float32",
                             causal=True, window=128, seed=s + 5))
+    # the monolithic baseline's Thinker prefill: one request of 23 tokens
+    flash.append(flash_case(torch, F, timer, "monolithic prefill f32 causal", B=1, sq=23,
+                            sk=23, nq=4, nkv=2, hd=32, dtype="float32", causal=True,
+                            seed=s + 6, profile=True))
     scan = [
         mamba_case(torch, timer, "falcon-mamba decode bf16", Bt=8, S=1, di=8192, n=16,
                    dtype="bfloat16", h0=True, profile=True),
@@ -654,6 +676,84 @@ def phase_qwen_omni(torch):
            "greedy_tokens_compared": sum(len(t) + sum(len(c) for c in ch)
                                          for t, ch in streams["cuda"])}
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase monolithic: the paper's baseline on the qwen_omni bundle
+# ---------------------------------------------------------------------------
+
+def phase_monolithic(torch, orchestrator_jct_p50, n_requests=8, seed=0):
+    """MonolithicQwenOmni (one request at a time: prefill, batch-1 decode,
+    then the DiT vocoder) on the qwen_omni bundle the CLI builds and the
+    8 requests of phase qwen_omni, after one warm-up request, backend
+    "cuda" with flash launches counted from 0; then one forward_prefill
+    of the Thinker, kernel vs plain, on the same card."""
+    import numpy as np
+
+    from repro_torch.baselines.monolithic import MonolithicQwenOmni
+    from repro_torch.configs.pipelines import build_qwen_omni
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import _make_inputs
+    from repro_torch.models import transformer as T
+
+    _, _, bundle = build_qwen_omni(max_batch=8, prefix_cache=True, device="cuda", seed=seed)
+    mono = MonolithicQwenOmni(bundle, (bundle["dit_cfg"], bundle["dit_params"]),
+                              dit_steps=bundle["dit_cfg"].num_steps, seed=seed)
+    rng = np.random.default_rng(seed)
+    prompts = [_make_inputs("qwen_omni", rng)["tokens"] for _ in range(n_requests)]
+    ops.set_backend("cuda")
+    try:
+        mono.run(prompts[:1])                        # warm-up, not counted
+        torch.cuda.synchronize()
+        fa.launches.reset()
+        t0 = time.perf_counter()
+        res = mono.run(prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fa.launches.value
+    finally:
+        ops.set_backend("auto")
+    talker_tokens = bundle["talker_tokens"]
+    for i, r in enumerate(res):
+        wave = np.asarray(r["wave"])
+        if (r["text"].shape != (bundle["thinker_tokens"],) or r["codec"].shape
+                != (talker_tokens,) or wave.shape != (1, 2 * talker_tokens, 32)
+                or not np.isfinite(wave).all()):
+            fail(f"monolithic: request {i}: text {r['text'].shape}, codec "
+                 f"{r['codec'].shape}, wave {wave.shape} (finite: {np.isfinite(wave).all()})")
+    if len(res) != n_requests:
+        fail(f"monolithic: {len(res)}/{n_requests} results")
+    if launches <= 0:
+        fail("monolithic: the flash attention kernel was not launched")
+
+    # one Thinker prefill (the longest prompt), kernel vs plain attention
+    cfg = bundle["thinker_cfg"].replace(modality="audio_frames")
+    params = bundle["thinker_params"]
+    prompt = max(prompts, key=len)
+    emb = params["embed"][torch.as_tensor(prompt, dtype=torch.long, device="cuda")][None]
+    logits = {}
+    with torch.no_grad():
+        for backend in ("cuda", "ref"):
+            ops.set_backend(backend)
+            logits[backend] = T.forward_prefill(cfg, params, emb, mono.max_seq)[0]
+    ops.set_backend("auto")
+    diff = float((logits["cuda"] - logits["ref"]).abs().max())
+    scale = float(logits["ref"].abs().max())
+    if not (diff <= PREFILL_LOGIT_RTOL * scale and torch.isfinite(logits["cuda"]).all()):
+        fail(f"monolithic prefill logits: max |cuda - ref| = {diff} > "
+             f"{PREFILL_LOGIT_RTOL} x {scale}")
+    jct = sorted(r["jct"] for r in res)
+    keys = ("jct", "exec", "thinker_time", "talker_time", "vocoder_time")
+    return {"phase": "monolithic", "requests": n_requests, "completed": len(res),
+            "prompt_lens": [len(p) for p in prompts], "wall_s": wall,
+            "jct_p50_s": jct[len(jct) // 2], "jct_max_s": jct[-1],
+            "orchestrator_jct_p50_s": orchestrator_jct_p50,
+            "per_request_s": [{k: r[k] for k in keys} for r in res],
+            "flash_launches": launches, "flash_launches_per_request": launches / n_requests,
+            "prefill_check_prompt_len": len(prompt),
+            "prefill_logits_max_abs_diff": diff, "prefill_logits_max_abs": scale,
+            "prefill_rtol": PREFILL_LOGIT_RTOL}, launches
 
 
 # ---------------------------------------------------------------------------
@@ -808,10 +908,19 @@ def phase_pipelines(torch, n_requests=4, seed=0):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: Qwen2.5-14B at full width
+# phases 5 and moe_full_width: Qwen2.5-14B and Qwen3-30B-A3B at full width
 # ---------------------------------------------------------------------------
 
-def phase_full_width(torch, n_requests=8, max_new=32, seed=0):
+def serve_paged_full_width(torch, arch, *, prefix_cache, n_requests=8, max_new=32, seed=0,
+                           drops=False):
+    """``arch``'s published config as a one-stage AR graph (page 16, 2048
+    tokens per sequence, max_batch 8), seeded random weights on the card,
+    8 seeded prompts of 128-1536 tokens and 32 greedy tokens, backend
+    "cuda" with paged launches counted from 0; taps time each prefill
+    chunk and decode step (a device sync after each) and, with ``drops``,
+    read the MoE layers' dropped (token, expert) pairs per call.  Then
+    one batched decode step, kernel vs plain, three profiled decode steps
+    and five timed alone.  Returns the run's numbers."""
     import argparse as _ap
 
     import numpy as np
@@ -823,13 +932,13 @@ def phase_full_width(torch, n_requests=8, max_new=32, seed=0):
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch.serve import build_single_arch
+    from repro_torch.models import moe
 
-    arch = "qwen2_5_14b"
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    _free(torch)
+    free_before, total = torch.cuda.mem_get_info()
     t_init = time.perf_counter()
     graph, engines, bundle = build_single_arch(
-        arch, 8, max_new, seed, prefix_cache=True, device="cuda", smoke=False,
+        arch, 8, max_new, seed, prefix_cache=prefix_cache, device="cuda", smoke=False,
         max_seq=2048)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t_init
@@ -841,9 +950,18 @@ def phase_full_width(torch, n_requests=8, max_new=32, seed=0):
 
     # measurement taps: device time of prefill chunks and decode steps
     stats = {"prefill_s": 0.0, "prefill_tokens": 0, "prefill_chunks": 0,
-             "decode_s": 0.0, "decode_tokens": 0, "decode_steps": 0}
+             "decode_s": 0.0, "decode_tokens": 0, "decode_steps": 0,
+             "prefill_drops": [], "decode_drops": []}
     first_token = {}
     prefill, decode, sample = runner.prefill_chunk, runner.decode, eng._sample
+    counter = torch.zeros((), dtype=torch.long, device="cuda") if drops else None
+
+    def dropped():
+        if counter is None:
+            return None
+        n = int(counter)
+        counter.zero_()
+        return n
 
     def timed_prefill(embeds, block_table, start, valid_len):
         t = time.perf_counter()
@@ -852,6 +970,7 @@ def phase_full_width(torch, n_requests=8, max_new=32, seed=0):
         stats["prefill_s"] += time.perf_counter() - t
         stats["prefill_tokens"] += int(valid_len)
         stats["prefill_chunks"] += 1
+        stats["prefill_drops"].append(dropped())
         return out
 
     def timed_decode(embeds, block_tables, positions, active):
@@ -861,6 +980,7 @@ def phase_full_width(torch, n_requests=8, max_new=32, seed=0):
         stats["decode_s"] += time.perf_counter() - t
         stats["decode_tokens"] += int(np.asarray(active).sum())
         stats["decode_steps"] += 1
+        stats["decode_drops"].append(dropped())
         return out
 
     def timed_sample(req_id, logits):     # called once per request: its first token
@@ -878,51 +998,106 @@ def phase_full_width(torch, n_requests=8, max_new=32, seed=0):
                                    engine_factories=bundle["engine_factories"])
     orch = Orchestrator(graph, engines, config=config)
     ops.set_backend("cuda")
+    moe.drop_counter = counter
     pa.launches.reset()
     t0 = time.perf_counter()
-    orch.start()
-    for r in reqs:
-        orch.submit(r)
-    orch.run(timeout=600.0)
-    torch.cuda.synchronize()
+    try:
+        orch.start()
+        for r in reqs:
+            orch.submit(r)
+        orch.run(timeout=600.0)
+        torch.cuda.synchronize()
+    finally:
+        moe.drop_counter = None
+        ops.set_backend("auto")
+        runner.prefill_chunk, runner.decode, eng._sample = prefill, decode, sample
     wall = time.perf_counter() - t0
     launches = pa.launches.value
-    ops.set_backend("auto")
-    runner.prefill_chunk, runner.decode, eng._sample = prefill, decode, sample
     done = [r for r in reqs if r.completion_time is not None and not r.failed]
     if len(done) != len(reqs):
-        fail(f"full width: {len(done)}/{len(reqs)} requests completed")
+        fail(f"{arch}: {len(done)}/{len(reqs)} requests completed: "
+             f"{[r.failed for r in reqs if r.failed]}")
     for r in reqs:
         toks = np.asarray(r.outputs[arch][0]["tokens"])
         if toks.shape != (max_new,):
-            fail(f"full width: request {r.req_id} produced {toks.shape} tokens")
+            fail(f"{arch}: request {r.req_id} produced {toks.shape} tokens")
     if launches <= 0:
-        fail("full width: paged attention kernel was not launched")
+        fail(f"{arch}: the paged attention kernel was not launched")
     ttft = sorted(first_token[r.req_id] - r.arrival_time for r in reqs)
     jct = sorted(r.jct for r in reqs)
+    peak = torch.cuda.max_memory_allocated()
 
-    check, step = decode_step_check(torch, runner, [r.inputs["tokens"] for r in reqs],
-                                    "full width")
+    check, step = decode_step_check(torch, runner, [r.inputs["tokens"] for r in reqs], arch)
     ops.set_backend("cuda")       # three decode steps, after the warm-up above
     _, busy = device_profile(torch, lambda: [step() for _ in range(3)])
+    # the same step alone, outside the serving threads and the profiler
+    t = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    alone_ms = 1e3 * (time.perf_counter() - t) / 5
     ops.set_backend("auto")
-    return {"phase": "full_width", "arch": arch, "d_model": cfg.d_model,
-            "num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
-            "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
-            "layers": cfg.num_layers, "layers_published": 48, "dtype": cfg.dtype,
-            "params": n_params, "init_s": t_init, "requests": len(reqs),
-            "completed": len(done), "prompt_lens": [int(n) for n in lens],
-            "new_tokens": max_new, "wall_s": wall,
-            "prefill_tok_per_s": stats["prefill_tokens"] / stats["prefill_s"],
-            "decode_tok_per_s": stats["decode_tokens"] / stats["decode_s"],
-            "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
-            "prefill_chunks": stats["prefill_chunks"], "decode_steps": stats["decode_steps"],
-            "prefill_ms_per_chunk": 1e3 * stats["prefill_s"] / stats["prefill_chunks"],
-            "decode_ms_per_step": 1e3 * stats["decode_s"] / stats["decode_steps"],
-            "decode_3_steps_profile": busy,
-            "ttft_p50_s": ttft[len(ttft) // 2], "jct_p50_s": jct[len(jct) // 2],
-            "jct_max_s": jct[-1], "paged_launches": launches,
-            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9, **check}
+    out = {"arch": arch, "source": cfg.source, "d_model": cfg.d_model,
+           "num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
+           "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+           "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "params": n_params, "param_bytes": sum(t.numel() * t.element_size()
+                                                  for t in _leaves(bundle["params"])),
+           "init_s": t_init, "requests": len(reqs),
+           "completed": len(done), "prompt_lens": [int(n) for n in lens],
+           "new_tokens": max_new, "wall_s": wall,
+           "prefill_tok_per_s": stats["prefill_tokens"] / stats["prefill_s"],
+           "decode_tok_per_s": stats["decode_tokens"] / stats["decode_s"],
+           "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+           "prefill_chunks": stats["prefill_chunks"], "decode_steps": stats["decode_steps"],
+           "prefill_ms_per_chunk": 1e3 * stats["prefill_s"] / stats["prefill_chunks"],
+           "decode_ms_per_step": 1e3 * stats["decode_s"] / stats["decode_steps"],
+           "decode_3_steps_profile": busy, "decode_ms_per_step_alone": alone_ms,
+           "ttft_p50_s": ttft[len(ttft) // 2], "jct_p50_s": jct[len(jct) // 2],
+           "jct_p95_s": jct[min(len(jct) - 1, int(0.95 * len(jct)))],
+           "jct_max_s": jct[-1], "paged_launches": launches,
+           "paged_launches_per_request": launches / len(reqs),
+           "device_free_gb_before_init": free_before / 1e9, "device_total_gb": total / 1e9,
+           "max_memory_allocated_gb": peak / 1e9, **check}
+    if drops:
+        out.update({"dropped_pairs_per_prefill_chunk": stats["prefill_drops"],
+                    "dropped_pairs_per_decode_step": stats["decode_drops"]})
+    return out
+
+
+def phase_full_width(torch):
+    out = serve_paged_full_width(torch, "qwen2_5_14b", prefix_cache=True)
+    out.update({"phase": "full_width", "layers_published": 48})
+    return out
+
+
+MOE_ARCH = "qwen3_moe_30b_a3b"
+
+
+def phase_moe_full_width(torch):
+    """Qwen3-30B-A3B at its published width and depth (48 layers, 128
+    experts top-8), every expert run over its C slots as the reference
+    formulation does: each decode step reads every expert's weights, so
+    its bytes bound the step from below."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(MOE_ARCH)
+    expert_bytes = cfg.num_layers * cfg.num_experts * 3 * cfg.d_model * cfg.d_ff * 2
+    _free(torch)
+    free, _ = torch.cuda.mem_get_info()
+    need = cfg.param_count() * 2 + 8 * 2048 * cfg.num_layers * 2 * cfg.num_kv_heads \
+        * cfg.head_dim * 2
+    if free < need:
+        fail(f"moe_full_width: {free / 1e9:.1f} GB free on the card, the weights and the "
+             f"KV pool need {need / 1e9:.1f} GB (an earlier phase was not released)")
+    out = serve_paged_full_width(torch, MOE_ARCH, prefix_cache=False, drops=True)
+    out.update({"phase": "moe_full_width", "num_experts": cfg.num_experts,
+                "experts_per_token": cfg.experts_per_token,
+                "expert_bytes": expert_bytes,
+                "decode_bound_ms_expert_weights": 1e3 * expert_bytes / HBM_BYTES_PER_S,
+                "decode_bound_ms_all_weights": 1e3 * out["param_bytes"] / HBM_BYTES_PER_S})
+    if out["decode_argmax_agree"] < 0.99:
+        fail(f"moe_full_width: decode argmax agreement {out['decode_argmax_agree']} < 0.99")
+    return out
 
 
 def decode_step_check(torch, runner, prompts, what: str):
@@ -976,6 +1151,9 @@ def decode_step_check(torch, runner, prompts, what: str):
 
 PD_ARCH = "internlm2_1_8b"
 SHM = "/dev/shm"
+# the connector's bytes over the requests' KV as f32: bf16 bits are half,
+# plus the payload's small leaves and framing
+KV_BYTES_LIMIT = 0.51
 
 
 def shm_usage() -> dict:
@@ -984,11 +1162,12 @@ def shm_usage() -> dict:
     return {"path": SHM, "total_bytes": u.total, "used_bytes": u.used, "free_bytes": u.free}
 
 
-def kv_payload_bytes(cfg, n_tokens: int, page: int) -> int:
+def kv_payload_bytes(cfg, n_tokens: int, page: int, elt: int = 2) -> int:
     """Bytes of one request's prompt KV on the host: whole pages, K and V,
-    widened to f32 (numpy has no bf16)."""
+    ``elt`` bytes per element (bf16 crosses as its 16-bit pattern; 4 is
+    the f32 it crossed as before)."""
     return 2 * cfg.num_layers * (-(-n_tokens // page) * page) * cfg.num_kv_heads \
-        * cfg.head_dim * 4
+        * cfg.head_dim * elt
 
 
 class GpuMemorySampler:
@@ -1025,8 +1204,8 @@ class PdTaps:
     process, and the KV hop's two ends (extract on the prefill engine,
     inject on the decode engine).  A step is read off the engine's own
     ``busy_time`` and ``steps``, as a spawned child reports them, and
-    counts as a decode step when it ran no prefill chunk; these taps add
-    no device sync.  ``verify_hop`` keeps a device copy of each request's
+    counts as a decode step when it ran no prefill chunk (with the CPU
+    time its thread spent in it); these taps add no device sync.  ``verify_hop`` keeps a device copy of each request's
     prefill pages at extraction and holds the decode engine's pages
     against it, bit for bit, right after injection (one sync and one
     compare per request)."""
@@ -1036,6 +1215,7 @@ class PdTaps:
         self.torch = torch
         self.first = {}
         self.decode_s, self.decode_steps, self.decode_tokens = 0.0, 0, 0
+        self.decode_cpu_s = 0.0
         self.extract_s, self.extract_n, self.extract_bytes = 0.0, 0, 0
         self.inject_s, self.inject_n = 0.0, 0
         self.hop_checked, self.hop_equal = 0, 0
@@ -1073,10 +1253,11 @@ class PdTaps:
     def _step(self, inner):
         eng = self._stepper
         self._prefilled, self._active = False, 0
-        busy, steps = eng.busy_time, eng.steps
+        busy, steps, cpu = eng.busy_time, eng.steps, time.thread_time()
         out = inner()
         if eng.steps > steps and not self._prefilled:
             self.decode_s += eng.busy_time - busy
+            self.decode_cpu_s += time.thread_time() - cpu
             self.decode_steps += 1
             self.decode_tokens += self._active
         return out
@@ -1103,19 +1284,19 @@ class PdTaps:
 
     def _extract(self, inner, block_table, n_tokens):
         t = time.perf_counter()
-        k, v = inner(block_table, n_tokens)
+        k, v, kv_dtype = inner(block_table, n_tokens)
         self.extract_s += time.perf_counter() - t
         self.extract_n += 1
         self.extract_bytes += k.nbytes + v.nbytes
         if self.verify_hop:
             kp, vp = self._pages(self._prefill, block_table, n_tokens)
             self._stash[self._key(k, n_tokens)] = (kp.clone(), vp.clone())
-        return k, v
+        return k, v, kv_dtype
 
-    def _inject(self, inner, k_seed, v_seed, block_table, n_tokens):
+    def _inject(self, inner, k_seed, v_seed, block_table, n_tokens, kv_dtype):
         import numpy as np
         t = time.perf_counter()
-        inner(k_seed, v_seed, block_table, n_tokens)
+        inner(k_seed, v_seed, block_table, n_tokens, kv_dtype)
         self.torch.cuda.synchronize()
         self.inject_s += time.perf_counter() - t
         self.inject_n += 1
@@ -1192,6 +1373,9 @@ def serve_pd_run(torch, label, graph, engines, make_reqs, *, out_stage, config=N
     if busy_engine is not None:
         busy_s, steps = busy_engine.busy_time, busy_engine.steps
         dec_s, dec_steps, dec_tok = taps.decode_s, taps.decode_steps, taps.decode_tokens
+        # the decoding thread's own CPU time per decode step: the rest of
+        # the step is waiting (for the GIL, or for the device)
+        out["decode_thread_cpu_ms_per_step"] = 1e3 * taps.decode_cpu_s / max(dec_steps, 1)
     else:                    # the child: its engine runs no prefill chunk
         st = worker.status
         busy_s, steps = st["busy_time"], st["engine_steps"]
@@ -1229,6 +1413,10 @@ def serve_pd_run(torch, label, graph, engines, make_reqs, *, out_stage, config=N
             out["hop_share_of_jct_p50"] = 1e-3 * out["hop_ms_per_request"] / m["jct_p50"]
     if worker is not None:
         st = worker.status
+        injects = st.get("kv_injects") or 0
+        out.update({"child_kv_injects": injects,
+                    "child_inject_ms_per_request": (1e3 * st["kv_inject_time"] / injects
+                                                    if injects else None)})
         out.update({"child_device": st.get("device"),
                     "child_paged_launches": st.get("kernel_launches", {}).get(
                         "paged_attention", 0),
@@ -1295,7 +1483,7 @@ def phase_pd_full_width(torch, n_requests=8, max_new=32, seed=0):
     print(f"/dev/shm: {shm}", flush=True)
     if shm["free_bytes"] < need:
         fail(f"pd_full_width: /dev/shm has {shm['free_bytes']} bytes free, the process "
-             f"run needs {need} (two copies of every request's f32 KV in flight)")
+             f"run needs {need} (two copies of every request's KV in flight)")
 
     def reqs():
         return [Request(inputs={"tokens": p}) for p in prompts]
@@ -1341,6 +1529,17 @@ def phase_pd_full_width(torch, n_requests=8, max_new=32, seed=0):
     agreement = {f"{a}~{b}": stream_agreement(streams[a], streams[b])
                  for a, b in (("unified", "pd_thread"), ("pd_thread", "pd_process"),
                               ("unified", "pd_process"))}
+    if any(a["identical_streams"] != n_requests for a in agreement.values()):
+        fail(f"pd_full_width: the three runs' streams differ: {agreement}")
+    # the hop carries bf16 KV as its bits: half the bytes of f32
+    f32_bytes = sum(kv_payload_bytes(cfg, int(n), page, elt=4) for n in lens)
+    for run in ("pd_thread", "pd_process"):
+        got = runs[run]["connector"]["bytes"]
+        if got > KV_BYTES_LIMIT * f32_bytes:
+            fail(f"pd_full_width {run}: the connector carried {got} bytes, more than "
+                 f"{KV_BYTES_LIMIT} x {f32_bytes} (the requests' KV as f32)")
+    if child["child_inject_ms_per_request"] is None:
+        fail("pd_full_width: the decode child reported no KV injection")
     check, _ = decode_step_check(torch, engines["decode"].runner, prompts, "pd_full_width")
     return {"phase": "pd_full_width", "arch": PD_ARCH, "source": cfg.source,
             "layers": cfg.num_layers, "d_model": cfg.d_model, "num_heads": cfg.num_heads,
@@ -1349,6 +1548,7 @@ def phase_pd_full_width(torch, n_requests=8, max_new=32, seed=0):
             "params": sum(t.numel() for t in _leaves(params)), "init_s": t_init,
             "page": page, "max_seq": max_seq, "max_batch": max_batch,
             "prompt_lens": [int(n) for n in lens], "new_tokens": max_new, "shm": shm,
+            "kv_bytes_as_f32": f32_bytes, "kv_bytes_limit": KV_BYTES_LIMIT * f32_bytes,
             "runs": runs, "first_tokens_equal": True, "stream_agreement": agreement,
             **check}
 
@@ -1731,6 +1931,11 @@ def main() -> int:
     emit(omni)
 
     t = time.perf_counter()
+    mono, mono_launches = phase_monolithic(torch, omni["jct_p50_s"])
+    mono["seconds"] = time.perf_counter() - t
+    emit(mono)
+
+    t = time.perf_counter()
     pipes, pipe_launches = phase_pipelines(torch)
     pipes["seconds"] = time.perf_counter() - t
     emit(pipes)
@@ -1755,11 +1960,18 @@ def main() -> int:
     hybrid["seconds"] = time.perf_counter() - t
     emit(hybrid)
 
+    t = time.perf_counter()
+    moe = phase_moe_full_width(torch)
+    moe["seconds"] = time.perf_counter() - t
+    emit(moe)
+
     # launches of each kernel in the runs that use it, each counted from 0
     # (the decode child of pd_full_width counts its own and reports them)
     by_run = {"paged_attention": {"qwen_omni": launches["paged_attention"],
-                                  "full_width": full["paged_launches"]},
+                                  "full_width": full["paged_launches"],
+                                  "moe_full_width": moe["paged_launches"]},
               "flash_attention": {"qwen_omni": launches["flash_attention"],
+                                  "monolithic": mono_launches,
                                   "hybrid": hybrid["launches"]},
               "mamba1_scan": {"ssm_full_width": ssm["launches"]}}
     for name, n in pipe_launches.items():

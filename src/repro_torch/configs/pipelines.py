@@ -305,9 +305,11 @@ def build_ar_dit(name: str = "glm_image", *, max_batch: int = 8,
 # ----------------------------------------------------------------------------
 
 def _kv_hop(data, payload):
-    """prefill -> decode: the prompt's KV, its length and the token the
+    """prefill -> decode: the prompt's KV (bf16 as its bits, with the type
+    tag ``runner.kv_to_host`` gives), its length and the token the
     prefill engine sampled from its last position."""
     return {"kv_seed": (payload["kv_k"], payload["kv_v"]),
+            "kv_dtype": payload["kv_dtype"],
             "prompt_len": payload["prompt_len"],
             "first_token": int(payload["tokens"][0])}
 

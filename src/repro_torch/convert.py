@@ -2,7 +2,9 @@
 
 The JAX package keeps parameters as nested dicts whose leaves are arrays,
 with the layers of a model stacked along a leading axis; the port keeps
-the same layout, so converting is one tensor per leaf.  The caller hands
+the same layout, so converting is one tensor per leaf (a MoE block's
+``moe.router`` stays f32, its ``wg``/``wu``/``wd`` expert stacks keep
+the model dtype, as in the JAX tree).  The caller hands
 over numpy arrays (``jax.tree.map(np.asarray, params)``), so nothing here
 imports JAX.  bf16 leaves arrive as ``ml_dtypes`` bfloat16 arrays, which
 ``torch.from_numpy`` rejects: they are detected by dtype name and carried

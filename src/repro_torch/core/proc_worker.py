@@ -43,8 +43,10 @@ This module is import-light (no torch): the parent pays nothing extra
 and a child serving a stub engine never imports torch at all.  A child's
 status reports its engine's device, the launch counts of the kernels
 its process has loaded (``kernel_launches``), read without importing
-them, and the engine's own count of the steps that did work
-(``engine_steps``, beside its ``busy_time``).
+them, the engine's own count of the steps that did work
+(``engine_steps``, beside its ``busy_time``), and for a PD decode engine
+the prompt KV it injected and the seconds that took (``kv_injects``,
+``kv_inject_time``).
 """
 from __future__ import annotations
 
@@ -131,6 +133,8 @@ def _child_status(engine: Any, consumed: int, steps: int) -> Dict[str, Any]:
         "busy_time": float(getattr(engine, "busy_time", 0.0)),
         "steps": steps,
         "engine_steps": getattr(engine, "steps", None),
+        "kv_injects": getattr(engine, "kv_injects", None),
+        "kv_inject_time": getattr(engine, "kv_inject_time", None),
         "cached_prefix_pages": int(
             getattr(engine, "cached_prefix_pages", 0) or 0),
         "prefix_stats": dict(ps) if isinstance(ps, dict) else None,
@@ -344,7 +348,8 @@ class ProcessStageWorker:
         self.status: Dict[str, Any] = {
             "device": None, "kernel_launches": {}, "consumed": 0,
             "has_work": False, "queue_depth": 0, "busy_time": 0.0,
-            "steps": 0, "engine_steps": None, "cached_prefix_pages": 0,
+            "steps": 0, "engine_steps": None, "kv_injects": None,
+            "kv_inject_time": None, "cached_prefix_pages": 0,
             "prefix_stats": None}
         self._last_seq: Dict[int, int] = {}
         self._stop = threading.Event()

@@ -4,6 +4,12 @@ paged-KV decode, with per-iteration preprocess hooks (paper §3.3).
 One engine serves one stage. Each ``step()`` executes one scheduler plan:
 admissions, prefill chunks, one batched decode, sampling, and event
 emission (finished outputs and streamed chunks).
+
+On a CUDA device each engine issues its work on a CUDA stream of its own
+(``device.engine_stream``), so that a step's host copies (the sampled
+tokens, a PD payload) wait for this engine's kernels only, not for those
+of another stage's thread in the same process.  Every payload an engine
+emits is host data.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.request import StageEvent
+from repro_torch.device import engine_stream, on_stream
 from repro_torch.engine.kv_cache import (PagedKVConfig, embed_prefix_keys,
                                    hash_embed_blocks, hash_token_blocks,
                                    token_prefix_keys)
@@ -47,7 +54,7 @@ class _ReqRuntime:
     streamed: int = 0
     chunk_index: int = 0
     t_first_sched: Optional[float] = None
-    kv_seed: Optional[tuple] = None              # (k, v, prompt_len) — PD
+    kv_seed: Optional[tuple] = None              # (k, v, kv_dtype, prompt_len) — PD
 
 
 class AREngine:
@@ -85,8 +92,6 @@ class AREngine:
                                    enable_prefix_cache=self.enable_prefix_cache,
                                    prefix_index=prefix_index)
         self._seed_events = 0           # pages warm-seeded into this replica
-        if cfg.arch_type == "moe":
-            raise NotImplementedError("AREngine: moe stages are not ported yet")
         if cfg.arch_type in ("ssm", "hybrid"):
             self.runner: Any = StateRunner(cfg, params, self.kv, max_batch)
             self._paged = False
@@ -99,10 +104,16 @@ class AREngine:
             self.runner = PagedRunner(cfg, params, self.kv)
             self._paged = True
         self.device = self.runner.device
+        # after the runner: the stream first waits for the pools' and the
+        # weights' initialisation, queued on the creating thread's stream
+        self.stream = engine_stream(self.device)
         self._rt: Dict[int, _ReqRuntime] = {}
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.steps = 0
         self.busy_time = 0.0
+        # PD: prompt KV injected, and the seconds it took (copy included)
+        self.kv_injects = 0
+        self.kv_inject_time = 0.0
 
     # ------------------------------------------------------------------
     def enqueue(self, req_id: int, inputs: Dict[str, Any],
@@ -114,7 +125,7 @@ class AREngine:
             # PD disaggregation: prompt KV arrives from a prefill stage
             k, v = inputs["kv_seed"]
             n = int(inputs["prompt_len"])
-            rt.kv_seed = (np.asarray(k), np.asarray(v), n)
+            rt.kv_seed = (np.asarray(k), np.asarray(v), inputs.get("kv_dtype"), n)
             rt.tokens = [int(inputs["first_token"])]
             if inputs.get("hidden") is not None and self.collect_hidden:
                 rt.hiddens = [np.asarray(h) for h in inputs["hidden"]]
@@ -258,9 +269,11 @@ class AREngine:
             out = []
             for hashes, keys, pages in paths:
                 bt = np.asarray(pages, np.int32)
-                k, v = self.runner.extract_kv(
-                    bt, len(pages) * self.kv.page_size)
-                out.append({"hashes": hashes, "keys": keys, "k": k, "v": v})
+                with on_stream(self.stream):    # after the engine's page writes
+                    k, v, kv_dtype = self.runner.extract_kv(
+                        bt, len(pages) * self.kv.page_size)
+                out.append({"hashes": hashes, "keys": keys, "k": k, "v": v,
+                            "kv_dtype": kv_dtype})
         finally:
             alloc.release_pin(pin)
         return out
@@ -289,9 +302,11 @@ class AREngine:
             if pages is None:
                 break                   # pool exhausted: seed what fits
             lo, hi = len(hit) * page, len(hashes) * page
-            self.runner.inject_kv(np.asarray(entry["k"])[:, lo:hi],
-                                  np.asarray(entry["v"])[:, lo:hi],
-                                  np.asarray(pages, np.int32), hi - lo)
+            with on_stream(self.stream):
+                self.runner.inject_kv(np.asarray(entry["k"])[:, lo:hi],
+                                      np.asarray(entry["v"])[:, lo:hi],
+                                      np.asarray(pages, np.int32), hi - lo,
+                                      entry.get("kv_dtype"))
             alloc.publish(hit + pages, hashes, keys)
             alloc.free(rid)             # published pages park in the LRU
             seeded += n_new
@@ -329,8 +344,8 @@ class AREngine:
             if self.emit_kv and self._paged:
                 seq = self.scheduler.running[req_id]
                 bt = self.scheduler.tables.row(req_id)
-                k, v = self.runner.extract_kv(bt, seq.pos)
-                payload.update({"kv_k": k, "kv_v": v,
+                k, v, kv_dtype = self.runner.extract_kv(bt, seq.pos)
+                payload.update({"kv_k": k, "kv_v": v, "kv_dtype": kv_dtype,
                                 "prompt_len": seq.pos})
             events.append(StageEvent(req_id, "finished", payload,
                                      stage=self.name))
@@ -384,6 +399,10 @@ class AREngine:
         return True
 
     def step(self) -> List[StageEvent]:
+        with on_stream(self.stream):
+            return self._step()
+
+    def _step(self) -> List[StageEvent]:
         t0 = time.perf_counter()
         events: List[StageEvent] = []
         plan = self.scheduler.schedule()
@@ -412,9 +431,14 @@ class AREngine:
         for rid in plan.admitted:
             rt = self._rt.get(rid)
             if rt is not None and rt.kv_seed is not None:
-                k, v, n = rt.kv_seed
+                k, v, kv_dtype, n = rt.kv_seed
+                t = time.perf_counter()
                 self.runner.inject_kv(
-                    k, v, self.scheduler.tables.row(rid), n)
+                    k, v, self.scheduler.tables.row(rid), n, kv_dtype)
+                if self.stream is not None:     # the copy's time, not its queueing
+                    self.stream.synchronize()
+                self.kv_inject_time += time.perf_counter() - t
+                self.kv_injects += 1
                 rt.kv_seed = None
         if not plan.prefill_chunks and not plan.decode_req_ids:
             return events

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.request import StageEvent
+from repro_torch.device import engine_stream, on_stream
 from repro_torch.models.dit import DiTConfig, sample as dit_sample
 
 
@@ -49,6 +50,7 @@ class DiffusionEngine:
         self.out_len_per_cond = out_len_per_cond
         self.queue: List[_DiffJob] = []
         self.device = params["in_proj"].device
+        self.stream = engine_stream(self.device)     # its own, as AREngine's
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.steps = 0
         self.busy_time = 0.0
@@ -92,8 +94,8 @@ class DiffusionEngine:
         conds = [j.cond for j in jobs]
         while len(conds) < self.max_batch:
             conds.append(np.zeros_like(conds[0]))
-        cond = torch.as_tensor(np.stack(conds), device=self.device)
-        with torch.no_grad():
+        with torch.no_grad(), on_stream(self.stream):
+            cond = torch.as_tensor(np.stack(conds), device=self.device)
             out = dit_sample(self.cfg, self.params, cond, key_[1], self._gen,
                              num_steps=self.num_steps,
                              cache_interval=self.cache_interval).cpu().numpy()

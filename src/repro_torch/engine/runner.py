@@ -1,6 +1,6 @@
 """Model runners: the step functions one AR engine executes.
 
-PagedRunner (dense / vlm / audio stages):
+PagedRunner (dense / moe / vlm / audio stages):
   - ``prefill_chunk``: process C prompt tokens of ONE request, writing their
     K/V into the request's pages and attending over all its history pages
     (chunked prefill, Sarathi-style).
@@ -17,7 +17,10 @@ The page pools and state caches are updated in place (the JAX package
 donates them to its jitted steps instead).  Writes go only to the
 positions a request owns: the JAX package routes the rest to page id
 ``num_pages`` and drops them, or masks inactive slots back; here they are
-never issued.  Prefill runs with the f32 activations its f32 embeddings
+never issued.  A MoE layer routes every row of its input, as the JAX
+runner does: a prefill chunk's padding and a decode batch's inactive
+slots take expert capacity too, so the same pairs are dropped.  Prefill
+runs with the f32 activations its f32 embeddings
 give (bf16 weights are promoted, as ``jnp`` promotes them); decode runs
 in the model dtype.  PagedRunner returns final-layer hidden states so
 stage-transfer functions can forward them downstream (e.g. Thinker
@@ -44,13 +47,31 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", copy=True).numpy()
 
 
+def kv_to_host(t: torch.Tensor) -> tuple:
+    """(numpy copy, dtype tag) of KV pages: bf16 crosses as its 16-bit
+    pattern (an int16 array tagged ``"bfloat16"``), as ``convert.py``
+    carries bf16 weights; other types as themselves, tagged with their
+    name.  The JAX package ships ``ml_dtypes`` bf16 arrays instead."""
+    if t.dtype == torch.bfloat16:
+        return t.detach().view(torch.int16).to("cpu", copy=True).numpy(), "bfloat16"
+    host = t.detach().to("cpu", copy=True).numpy()
+    return host, host.dtype.name
+
+
+def kv_from_host(a: np.ndarray, kv_dtype: str | None, device) -> torch.Tensor:
+    """A tensor on ``device`` from ``kv_to_host``'s array and tag (a copy:
+    connector payloads are read-only views of their buffers)."""
+    t = torch.tensor(np.asarray(a), device=device)
+    return t.view(torch.bfloat16) if kv_dtype == "bfloat16" else t
+
+
 class PagedRunner:
     """Paged-KV execution for attention architectures."""
 
     def __init__(self, cfg: ModelConfig, params, kv: PagedKVConfig):
-        if cfg.arch_type not in ("dense", "vlm", "audio"):
+        if cfg.arch_type not in ("dense", "moe", "vlm", "audio"):
             raise NotImplementedError(
-                f"PagedRunner: {cfg.arch_type} layers are not ported yet")
+                f"PagedRunner serves attention families, not {cfg.arch_type!r}")
         self.cfg = cfg
         self.params = params
         self.kv = kv
@@ -131,7 +152,7 @@ class PagedRunner:
             o = ref.chunk_attention(q, k_all, v_all, start, window=self._window)
             h = h + L.unproject(o, lp["attn"]["wo"])
             hn = L.rmsnorm(lp["ln2"], h, cfg.rmsnorm_eps)
-            h = h + L.mlp(lp["mlp"], hn)
+            h = h + L.mlp_or_moe(cfg, lp, hn)
         logits = T._unembed(cfg, self.params, h)[0]
         return logits, h[0]
 
@@ -154,11 +175,14 @@ class PagedRunner:
     def extract_kv(self, block_table, n_tokens: int):
         """Pull one request's prompt KV out of the page pool.
 
-        Returns (k, v): (L, n_pages*page, nkv, hd) host arrays, copies and
-        never views of the pool (trailing padding past n_tokens holds
-        whatever the pages hold) — the payload a prefill stage ships to a
-        decode stage through the unified connector.  Quantized pools ship
-        dequantized f32, bf16 pools widen to f32.
+        Returns (k, v, kv_dtype): (L, n_pages*page, nkv, hd) host arrays,
+        copies and never views of the pool (trailing padding past n_tokens
+        holds whatever the pages hold), and their type's tag
+        (``kv_to_host``) — the payload a prefill stage ships to a decode
+        stage through the unified connector.  A bf16 pool ships its bits;
+        a quantized pool ships dequantized f32.  The host copy runs on the
+        caller's current stream, which must be the one that wrote the
+        pages (the engine's).
         """
         page = self.kv.page_size
         n_pages = -(-n_tokens // page)
@@ -171,11 +195,15 @@ class PagedRunner:
             v = v.float() * self.v_scales[:, bt][..., None]
         shape = (self.cfg.num_layers, n_pages * page,
                  self.cfg.num_kv_heads, self.cfg.head_dim)
-        return to_host(k.reshape(shape)), to_host(v.reshape(shape))
+        (k, tag), (v, _) = kv_to_host(k.reshape(shape)), kv_to_host(v.reshape(shape))
+        return k, v, tag
 
     @torch.no_grad()
-    def inject_kv(self, k_seed, v_seed, block_table, n_tokens: int) -> None:
-        """Write transferred prompt KV into this engine's page pool."""
+    def inject_kv(self, k_seed, v_seed, block_table, n_tokens: int,
+                  kv_dtype: str | None = None) -> None:
+        """Write transferred prompt KV into this engine's page pool;
+        ``kv_dtype`` is ``extract_kv``'s tag (None: the arrays' own type).
+        The copy to the device runs on the caller's current stream."""
         page = self.kv.page_size
         n_pages = -(-n_tokens // page)
         k_seed, v_seed = np.asarray(k_seed), np.asarray(v_seed)
@@ -185,11 +213,9 @@ class PagedRunner:
             k_seed = np.pad(k_seed, padw)
             v_seed = np.pad(v_seed, padw)
         n_layers, _, nkv, hd = k_seed.shape
-        # copies: connector payloads are read-only views of their buffers
-        kp = torch.tensor(k_seed.reshape(n_layers, n_pages, page, nkv, hd),
-                          device=self.device)
-        vp = torch.tensor(v_seed.reshape(n_layers, n_pages, page, nkv, hd),
-                          device=self.device)
+        shape = (n_layers, n_pages, page, nkv, hd)
+        kp = kv_from_host(k_seed.reshape(shape), kv_dtype, self.device)
+        vp = kv_from_host(v_seed.reshape(shape), kv_dtype, self.device)
         bt = torch.as_tensor(np.asarray(block_table[:n_pages]), dtype=torch.long,
                              device=self.device)
         if self.quant:
@@ -239,7 +265,7 @@ class PagedRunner:
                                     v_scale_pages=vsp)
             h = h + L.unproject(o.to(h.dtype), lp["attn"]["wo"])[:, None]
             hn = L.rmsnorm(lp["ln2"], h, cfg.rmsnorm_eps)
-            h = h + L.mlp(lp["mlp"], hn)
+            h = h + L.mlp_or_moe(cfg, lp, hn)
         logits = T._unembed(cfg, self.params, h)[:, 0]
         return logits, h[:, 0]
 

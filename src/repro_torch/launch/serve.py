@@ -12,10 +12,11 @@ Three modes:
     worker thread while the front-end keeps admitting
       PYTHONPATH=src python -m repro_torch.launch.serve --pipeline qwen_omni \
           --online --requests 16 --rate 4.0 --max-inflight 8
-  - single: serve one dense, SSM or hybrid architecture (smoke-scale) as
-    a 1-stage graph
+  - single: serve one dense, MoE, SSM or hybrid architecture
+    (smoke-scale) as a 1-stage graph
       PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_5_14b \
           --requests 4
+      PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_moe_30b_a3b
       PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon_mamba_7b
 
 ``--device`` defaults to ``cuda``; without a card the launcher stops with
@@ -48,7 +49,7 @@ from repro_torch.models import transformer as T
 def build_single_arch(arch: str, max_batch: int, max_new: int, seed: int = 0,
                       prefix_cache: bool = False, device=None, *,
                       smoke: bool = True, max_seq: int = 256):
-    """One dense, SSM or hybrid architecture as a one-stage AR graph.
+    """One dense, MoE, SSM or hybrid architecture as a one-stage AR graph.
     ``smoke=False`` serves the published config (``CONFIG``); ``max_seq``
     sizes each sequence's KV pages (or the hybrid's dense KV caches)."""
     dev = resolve_device(device)

@@ -1,5 +1,6 @@
-"""Core neural layers: RMSNorm, RoPE, GQA projections, int8 KV
-quantization, dense-cache decode attention, SwiGLU MLP.
+"""Core neural layers: RMSNorm, RoPE, GQA projections, full-sequence
+(flash) and dense-cache decode attention, int8 KV quantization, SwiGLU
+MLP, and the pre-norm transformer block (MLP or MoE).
 
 Functional, like the JAX package: ``init_*`` builds a parameter dict of
 tensors from a ``torch.Generator``, the other functions consume it.
@@ -230,19 +231,58 @@ def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------------
-# Transformer block parameters (attention + MLP), pre-norm
+# Transformer block (attention + MLP or MoE), pre-norm
 # ----------------------------------------------------------------------------
 
 def init_block(cfg: ModelConfig, gen: torch.Generator) -> dict:
-    if cfg.is_moe:
-        raise NotImplementedError("MoE blocks wait for the port of models/moe.py")
+    from repro_torch.models import moe as moe_mod
     dtype = torch_dtype(cfg.dtype)
-    return {
+    p = {
         "ln1": init_rmsnorm(cfg.d_model, dtype, gen.device),
         "attn": init_attention(cfg, gen),
         "ln2": init_rmsnorm(cfg.d_model, dtype, gen.device),
-        "mlp": init_mlp(cfg, gen),
     }
+    if cfg.is_moe:
+        p["moe"] = moe_mod.init_moe(cfg, gen)
+    else:
+        p["mlp"] = init_mlp(cfg, gen)
+    return p
+
+
+def mlp_or_moe(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The block's feed-forward: the SwiGLU MLP, or the MoE layer (its aux
+    loss dropped, as every serving path of the JAX package drops it)."""
+    if cfg.is_moe:
+        from repro_torch.models import moe as moe_mod
+        return moe_mod.moe_forward(cfg, p["moe"], x)[0]
+    return mlp(p["mlp"], x)
+
+
+def attention_full(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
+                   causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention (train / prefill / encoder), through the
+    flash kernel on the card."""
+    q, k, v = _qkv(cfg, p, x)
+    if cfg.head_dim and cfg.rope_theta and not cfg.is_encoder:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    window = cfg.sliding_window if cfg.attn_variant == "swa" else 0
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    return unproject(o, p["wo"])
+
+
+def block_full(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
+               causal: bool = True):
+    """Full-sequence transformer block.  Returns (x, aux_loss)."""
+    x = x + attention_full(cfg, p["attn"], rmsnorm(p["ln1"], x, cfg.rmsnorm_eps),
+                           positions, causal=causal)
+    h = rmsnorm(p["ln2"], x, cfg.rmsnorm_eps)
+    if cfg.is_moe:
+        from repro_torch.models import moe as moe_mod
+        y, aux = moe_mod.moe_forward(cfg, p["moe"], h)
+    else:
+        y, aux = mlp(p["mlp"], h), torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
 
 
 def block_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, pos: torch.Tensor,
@@ -250,8 +290,10 @@ def block_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, pos: torch.Tensor,
                  k_scale: torch.Tensor | None = None,
                  v_scale: torch.Tensor | None = None,
                  rows: torch.Tensor | None = None) -> torch.Tensor:
-    """Pre-norm attention + MLP block for one decode token; the caches
-    are written in place (see ``attention_decode``)."""
+    """Pre-norm attention + MLP (or MoE) block for one decode token; the
+    caches are written in place (see ``attention_decode``).  Every batch
+    row goes through the MoE router, inactive ones too, as in the JAX
+    package (an expert's capacity counts them)."""
     x = x + attention_decode(cfg, p["attn"], rmsnorm(p["ln1"], x, cfg.rmsnorm_eps), pos,
                              k_cache, v_cache, k_scale, v_scale, rows)
-    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.rmsnorm_eps))
+    return x + mlp_or_moe(cfg, p, rmsnorm(p["ln2"], x, cfg.rmsnorm_eps))

@@ -1,20 +1,22 @@
-"""Model parameters, the embedding/unembedding, and the recurrent-state
-families' prefill and decode.
+"""Unified model definition of the port: one functional API over the
+dense / MoE / SSM / hybrid / encoder / VLM configs.
 
   init_params(cfg, gen)                          -> params
-  forward_prefill(cfg, params, inputs, max_seq)  -> (logits, cache)   ssm / hybrid
-  init_decode_cache(cfg, batch, max_seq, device) -> cache             ssm / hybrid
-  forward_decode(cfg, params, cache, tok, pos)   -> (logits, cache)   ssm / hybrid
+  forward_full(cfg, params, inputs)              -> (logits, aux)      encode / recompute
+  forward_prefill(cfg, params, inputs, max_seq)  -> (logits, cache)    fill a dense cache
+  init_decode_cache(cfg, batch, max_seq, device) -> cache
+  forward_decode(cfg, params, cache, tok, pos)   -> (logits, cache)    one token
 
 Layer parameters stack over a leading axis (``blocks``; ``mamba`` for the
 SSM and hybrid families, whose hybrid also has ONE ``shared_attn`` block
 applied after every ``shared_attn_every`` Mamba layers, with a KV cache
-per application site).  The dense path's per-layer passes live in
-``engine/runner.py`` (paged KV).  ``forward_full`` and the MoE family wait
-for the training and MoE slices of the port.
+per application site).  The serving engines run the attention families
+through ``engine/runner.py``'s paged KV pool; these dense-cache paths
+serve the monolithic baseline and the recurrent-state runner.  The
+layers loop in Python where the JAX package scans them.
 
 ``forward_decode`` updates the cache in place (the JAX package returns a
-new one): a full-width state cache is not copied every step.
+new one): a full-width cache is not copied every step.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 
 _STATE_FAMILIES = ("ssm", "hybrid")
+_ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
@@ -72,10 +75,38 @@ def _layer(params: dict, i: int) -> dict:
 
 
 def _check_family(cfg: ModelConfig, what: str) -> None:
-    if cfg.arch_type not in _STATE_FAMILIES:
-        raise NotImplementedError(
-            f"{what}: {cfg.arch_type} models run in engine/runner.py's PagedRunner "
-            f"(dense) or wait for their slice of the port (moe)")
+    if cfg.arch_type not in _STATE_FAMILIES + _ATTN_FAMILIES:
+        raise NotImplementedError(f"{what}: no {cfg.arch_type!r} family in the port")
+
+
+def _block(params: dict, i: int) -> dict:
+    return L.tree_map(lambda a: a[i], params["blocks"])
+
+
+# ----------------------------------------------------------------------------
+# full-sequence forward (encode / recompute)
+# ----------------------------------------------------------------------------
+
+def forward_full(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
+                 positions: torch.Tensor | None = None):
+    """inputs: int tokens (B, S) or float frames (B, S, d).  Returns
+    (logits (B, S, V), aux): the MoE layers' summed load-balance loss, a
+    0-d f32 zero for the other families.  Forward only: the JAX package's
+    ``remat`` (activation recompute for its backward) waits for the
+    training slice."""
+    _check_family(cfg, "forward_full")
+    x = _embed(cfg, params, inputs)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.arch_type in _STATE_FAMILIES:
+        x, _ = _state_backbone(cfg, params, x, positions)
+    else:
+        for i in range(cfg.num_layers):
+            x, a = L.block_full(cfg, _block(params, i), x, positions,
+                                causal=not cfg.is_encoder)
+            aux = aux + a
+    return _unembed(cfg, params, x), aux
 
 
 # ----------------------------------------------------------------------------
@@ -93,23 +124,30 @@ def kv_cache_seq(cfg: ModelConfig, max_seq: int) -> int:
     return max_seq
 
 
+def _kv_cache(cfg: ModelConfig, n: int, batch: int, max_seq: int, device) -> dict:
+    shape = (n, batch, kv_cache_seq(cfg, max_seq), cfg.num_kv_heads, cfg.head_dim)
+    cache = {"k": torch.zeros(shape, dtype=_kv_store_dtype(cfg), device=device),
+             "v": torch.zeros(shape, dtype=_kv_store_dtype(cfg), device=device)}
+    if cfg.kv_cache_dtype == "int8":
+        cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+        cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+    return cache
+
+
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> dict:
-    """Zero state (``ssm_h`` f32, ``ssm_conv`` in cfg.dtype, each with a
-    leading layer axis) and, for the hybrid, one dense KV cache per
-    shared-attention site (``k``/``v``, int8 with ``k_scale``/``v_scale``)."""
+    """Zero caches: dense KV (``k``/``v`` with a leading layer axis, int8
+    with ``k_scale``/``v_scale``) for the attention families; ``ssm_h``
+    (f32) and ``ssm_conv`` (cfg.dtype) for the state families, and for
+    the hybrid one dense KV cache per shared-attention site."""
     _check_family(cfg, "init_decode_cache")
+    if cfg.arch_type in _ATTN_FAMILIES:
+        return _kv_cache(cfg, cfg.num_layers, batch, max_seq, device)
     h, conv = M.init_mamba_state(cfg, batch, device)
     n = cfg.num_layers
     cache = {"ssm_h": torch.zeros((n, *h.shape), dtype=h.dtype, device=device),
              "ssm_conv": torch.zeros((n, *conv.shape), dtype=conv.dtype, device=device)}
     if cfg.arch_type == "hybrid":
-        shape = (_n_sites(cfg), batch, kv_cache_seq(cfg, max_seq), cfg.num_kv_heads,
-                 cfg.head_dim)
-        cache["k"] = torch.zeros(shape, dtype=_kv_store_dtype(cfg), device=device)
-        cache["v"] = torch.zeros(shape, dtype=_kv_store_dtype(cfg), device=device)
-        if cfg.kv_cache_dtype == "int8":
-            cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
-            cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+        cache.update(_kv_cache(cfg, _n_sites(cfg), batch, max_seq, device))
     return cache
 
 
@@ -124,6 +162,13 @@ def _update(dst: torch.Tensor, src: torch.Tensor, rows: torch.Tensor | None) -> 
         dst[rows] = src[rows].to(dst.dtype)
 
 
+def _site_kv(cfg: ModelConfig, cache: dict, i: int):
+    """Layer (or site) i's dense KV cache views: k, v, k_scale, v_scale."""
+    scales = ((cache["k_scale"][i], cache["v_scale"][i])
+              if cfg.kv_cache_dtype == "int8" else (None, None))
+    return (cache["k"][i], cache["v"][i], *scales)
+
+
 def forward_decode(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor,
                    pos, rows: torch.Tensor | None = None):
     """tokens: (B, 1) int (or (B, 1, d) frames); pos: scalar or (B,).
@@ -133,6 +178,11 @@ def forward_decode(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Te
     _check_family(cfg, "forward_decode")
     x = _embed(cfg, params, tokens)
     posb = torch.as_tensor(pos, device=x.device).long().expand(x.shape[0])
+    if cfg.arch_type in _ATTN_FAMILIES:
+        for i in range(cfg.num_layers):
+            x = L.block_decode(cfg, _block(params, i), x, posb, *_site_kv(cfg, cache, i),
+                               rows=rows)
+        return _unembed(cfg, params, x), cache
     gs = cfg.shared_attn_every if cfg.arch_type == "hybrid" else cfg.num_layers
     for i in range(cfg.num_layers):
         sh, sc = cache["ssm_h"][i], cache["ssm_conv"][i]
@@ -140,11 +190,8 @@ def forward_decode(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Te
         _update(sh, h, rows)
         _update(sc, conv, rows)
         if cfg.arch_type == "hybrid" and (i + 1) % gs == 0:
-            site = i // gs
-            scales = ((cache["k_scale"][site], cache["v_scale"][site])
-                      if cfg.kv_cache_dtype == "int8" else (None, None))
-            x = L.block_decode(cfg, params["shared_attn"], x, posb, cache["k"][site],
-                               cache["v"][site], *scales, rows=rows)
+            x = L.block_decode(cfg, params["shared_attn"], x, posb,
+                               *_site_kv(cfg, cache, i // gs), rows=rows)
     return _unembed(cfg, params, x), cache
 
 
@@ -153,7 +200,8 @@ def forward_decode(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Te
 # ----------------------------------------------------------------------------
 
 def _attn_prefill(cfg: ModelConfig, lp: dict, h: torch.Tensor, positions: torch.Tensor):
-    """One attention block over the whole sequence: (h, (k, v))."""
+    """One attention block over the whole sequence, causal (flash kernel
+    on the card), MLP or MoE: (h, (k, v))."""
     hn = L.rmsnorm(lp["ln1"], h, cfg.rmsnorm_eps)
     q, k, v = L._qkv(cfg, lp["attn"], hn)
     if cfg.head_dim and cfg.rope_theta and not cfg.is_encoder:
@@ -162,7 +210,7 @@ def _attn_prefill(cfg: ModelConfig, lp: dict, h: torch.Tensor, positions: torch.
     window = cfg.sliding_window if cfg.attn_variant == "swa" else 0
     o = ops.flash_attention(q, k, v, causal=True, window=window)
     h = h + L.unproject(o, lp["attn"]["wo"])
-    h = h + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], h, cfg.rmsnorm_eps))
+    h = h + L.mlp_or_moe(cfg, lp, L.rmsnorm(lp["ln2"], h, cfg.rmsnorm_eps))
     return h, (k, v)
 
 
@@ -187,15 +235,10 @@ def _to_cache_layout(cfg: ModelConfig, a: torch.Tensor, axis: int, s: int,
     return torch.where((p >= 0).reshape(mask_shape), gathered, gathered.new_zeros(()))
 
 
-def forward_prefill(cfg: ModelConfig, params: dict, inputs: torch.Tensor, max_seq: int):
-    """Process the prompt and return (logits (B, S, V), filled cache), the
-    cache as ``init_decode_cache`` lays it out (sized to ``max_seq``;
-    prompt K/V occupy its first S columns, or the ring's), in the
-    activations' type: the caller casts it into its own cache."""
-    _check_family(cfg, "forward_prefill")
-    x = _embed(cfg, params, inputs)
-    s = x.shape[1]
-    positions = torch.arange(s, device=x.device)[None, :]
+def _state_backbone(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                    positions: torch.Tensor):
+    """The SSM / hybrid layers over a whole sequence: (x, (hs, convs, ks,
+    vs)), the per-layer final states and the per-site prompt K/V."""
     gs = cfg.shared_attn_every if cfg.arch_type == "hybrid" else cfg.num_layers
     hs, convs, ks, vs = [], [], [], []
     for i in range(cfg.num_layers):
@@ -206,14 +249,44 @@ def forward_prefill(cfg: ModelConfig, params: dict, inputs: torch.Tensor, max_se
             x, (k, v) = _attn_prefill(cfg, params["shared_attn"], x, positions)
             ks.append(k)
             vs.append(v)
+    return x, (hs, convs, ks, vs)
+
+
+def _kv_to_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor, s: int,
+                 max_seq: int) -> dict:
+    """Stacked prompt K/V (n, B, s, nkv, hd) as a dense cache's entries,
+    quantized when the cache is int8."""
+    cache_seq = kv_cache_seq(cfg, max_seq)
+    cache = {}
+    if cfg.kv_cache_dtype == "int8":
+        (k, ks_), (v, vs_) = L.quantize_kv(k), L.quantize_kv(v)
+        cache["k_scale"] = _to_cache_layout(cfg, ks_, -2, s, cache_seq)
+        cache["v_scale"] = _to_cache_layout(cfg, vs_, -2, s, cache_seq)
+    cache["k"] = _to_cache_layout(cfg, k, -3, s, cache_seq)
+    cache["v"] = _to_cache_layout(cfg, v, -3, s, cache_seq)
+    return cache
+
+
+def forward_prefill(cfg: ModelConfig, params: dict, inputs: torch.Tensor, max_seq: int):
+    """Process the prompt and return (logits (B, S, V), filled cache), the
+    cache as ``init_decode_cache`` lays it out (sized to ``max_seq``;
+    prompt K/V occupy its first S columns, or the ring's), in the
+    activations' type: the caller casts it into its own cache, or decodes
+    on it as it is (as the JAX package does)."""
+    _check_family(cfg, "forward_prefill")
+    x = _embed(cfg, params, inputs)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)[None, :]
+    if cfg.arch_type in _ATTN_FAMILIES:
+        ks, vs = [], []
+        for i in range(cfg.num_layers):
+            x, (k, v) = _attn_prefill(cfg, _block(params, i), x, positions)
+            ks.append(k)
+            vs.append(v)
+        cache = _kv_to_cache(cfg, torch.stack(ks), torch.stack(vs), s, max_seq)
+        return _unembed(cfg, params, x), cache
+    x, (hs, convs, ks, vs) = _state_backbone(cfg, params, x, positions)
     cache = {"ssm_h": torch.stack(hs), "ssm_conv": torch.stack(convs)}
     if cfg.arch_type == "hybrid":
-        cache_seq = kv_cache_seq(cfg, max_seq)
-        k, v = torch.stack(ks), torch.stack(vs)              # (sites, B, S, nkv, hd)
-        if cfg.kv_cache_dtype == "int8":
-            (k, ks_), (v, vs_) = L.quantize_kv(k), L.quantize_kv(v)
-            cache["k_scale"] = _to_cache_layout(cfg, ks_, -2, s, cache_seq)
-            cache["v_scale"] = _to_cache_layout(cfg, vs_, -2, s, cache_seq)
-        cache["k"] = _to_cache_layout(cfg, k, -3, s, cache_seq)
-        cache["v"] = _to_cache_layout(cfg, v, -3, s, cache_seq)
+        cache.update(_kv_to_cache(cfg, torch.stack(ks), torch.stack(vs), s, max_seq))
     return _unembed(cfg, params, x), cache

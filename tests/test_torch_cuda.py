@@ -389,3 +389,69 @@ def test_cnn_vocoder_conv_stays_f32_with_cudnn_tf32_on(cuda, monkeypatch):
     want = torch.nn.functional.conv1d(x.double().cpu().transpose(1, 2),
                                       w.double().cpu().permute(2, 1, 0), padding=1)
     torch.testing.assert_close(got.cpu(), want.transpose(1, 2).float(), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("window", [0, 512])
+def test_paged_kernel_at_the_moe_decode_shape(cuda, window):
+    """Qwen3-30B-A3B's decode: B 8, 32 query heads over 4 KV heads (GQA
+    8:1, two blocks of 4 query heads per KV head), hd 128, bf16, pages
+    of 16 and a 2048-token table; an inactive row and a full one."""
+    b, nq, nkv, hd, page, pp = 8, 32, 4, 128, 16, 128
+    P = b * pp + 8
+    q = torch.randn((b, nq, hd), generator=cuda, device="cuda").bfloat16()
+    kp = torch.randn((P, page, nkv, hd), generator=cuda, device="cuda").bfloat16()
+    vp = torch.randn((P, page, nkv, hd), generator=cuda, device="cuda").bfloat16()
+    bt = torch.randperm(P, generator=cuda, device="cuda")[:b * pp].reshape(b, pp).int()
+    sl = torch.randint(1, page * pp + 1, (b,), generator=cuda, device="cuda").int()
+    sl[0], sl[-1] = 0, page * pp
+    plan = pa.plan(b, nq, nkv, hd, page, pp)
+    assert plan.grid == (nkv * 2, b, 8)
+    got = pa.paged_attention(q, kp, vp, bt, sl, window=window)
+    want = ref.paged_attention(q, kp, vp, bt, sl, window=window)
+    split = ref.paged_attention_split(q, kp, vp, bt, sl, partition=pa.PARTITION, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].float(), torch.zeros_like(got[0].float()))
+    torch.testing.assert_close(got[1:].float(), want[1:].float(), **_tol(torch.bfloat16))
+    torch.testing.assert_close(got.float(), split.float(), **_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("s", [6, 13, 23, 24])
+def test_flash_kernel_at_the_monolithic_prefill_shape(cuda, s):
+    """The monolithic baseline's prefill and recompute at the qwen_omni
+    size: one request, causal, f32, 4 query / 2 KV heads of 32 (the mma
+    route, one ragged 64-row tile)."""
+    q = torch.randn((1, s, 4, 32), generator=cuda, device="cuda")
+    k = torch.randn((1, s, 2, 32), generator=cuda, device="cuda")
+    v = torch.randn((1, s, 2, 32), generator=cuda, device="cuda")
+    assert fa.route(torch.float32, 32) == "mma"
+    n = fa.launches.value
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.launches.value == n + 1
+    torch.testing.assert_close(got, ref.flash_attention(q, k, v, causal=True),
+                               **_tol(torch.float32))
+
+
+def test_bf16_kv_hop_round_trip_is_bit_exact_on_the_card(cuda):
+    """extract_kv ships a bf16 pool's bits (int16, tagged) and inject_kv
+    writes the same bits into other pages, on the engine's own stream."""
+    from repro_torch.configs.pipelines import tiny_lm
+    from repro_torch.device import engine_stream, on_stream
+    from repro_torch.engine.kv_cache import PagedKVConfig
+    from repro_torch.engine.runner import PagedRunner
+    from repro_torch.models import transformer as T
+    cfg = tiny_lm("t", vocab=256).replace(dtype="bfloat16")
+    runner = PagedRunner(cfg, T.init_params(cfg, cuda), PagedKVConfig(
+        num_pages=40, page_size=16, max_pages_per_seq=8))
+    runner.k_pages.copy_(torch.randn(runner.k_pages.shape, generator=cuda, device="cuda"))
+    runner.v_pages.copy_(torch.randn(runner.v_pages.shape, generator=cuda, device="cuda"))
+    src = [3, 17, 9, 0, 0, 0, 0, 0]
+    dst = [20, 21, 22, 0, 0, 0, 0, 0]
+    stream = engine_stream(runner.device)
+    with on_stream(stream):
+        k, v, tag = runner.extract_kv(src, 37)
+        runner.inject_kv(k, v, dst, 37, tag)
+    stream.synchronize()
+    assert tag == "bfloat16" and k.dtype.name == "int16"
+    for pool in (runner.k_pages, runner.v_pages):
+        assert torch.equal(pool[:, dst[:3]].view(torch.int16), pool[:, src[:3]].view(torch.int16))
