@@ -6,7 +6,7 @@
 Phases, each printing one JSON line with its wall time:
   1. device   — the card's name and power limit (nvidia-smi) and its
                 compute capability, which must be (9, 0);
-  2. build    — the three CUDA kernels built from
+  2. build    — the four CUDA sources built from
                 ``src/repro_torch/kernels/csrc`` for sm_90a (one nvcc per
                 source, started together), with each kernel's registers and
                 spills from ``-Xptxas -v`` (a spill fails the run);
@@ -19,7 +19,11 @@ Phases, each printing one JSON line with its wall time:
                 with CUDA events fenced by a device-side sleep (``Timer``)
                 beside the plain version and one PyTorch library call (a
                 yardstick the port never uses); the sub-0.05 ms cases are
-                also read from the profiler's kernel events;
+                also read from the profiler's kernel events; the flash
+                backward against its plain FA2 equations (dq, dk, dv) at
+                InternLM2's training shape, the smoke configs' f32, a
+                window, HuBERT's non-causal hd 80 and a ragged S, timed
+                beside autograd of SDPA;
   4. qwen_omni — the Thinker -> Talker -> DiT-vocoder pipeline served
                 through the port's threaded Orchestrator: two greedy runs,
                 backend "cuda" and backend "ref", whose Thinker and Talker
@@ -61,6 +65,19 @@ Phases, each printing one JSON line with its wall time:
                 counted), then one whole-prompt prefill (the shortest
                 prompt: the plain Mamba2 scan launches per step) under the
                 profiler;
+  7b. train_full_width — InternLM2-1.8B trained at its published width
+                and depth (bf16, batch 4 x 2048 tokens, full remat): one
+                step's loss, grad norm and per-leaf gradients with backend
+                "cuda" and "ref", each against an f32 run; 3 AdamW steps
+                (ms per step, tokens/s, share of the bf16 peak, peak
+                memory, forward and backward kernel launches per step)
+                and one profiled step (device busy share, device time by
+                kind of kernel); the same 3 steps through
+                ``launch/train.py``'s ``main``; tiny_lm trained 30
+                steps with falling loss; one step of each family's smoke
+                config "cuda" and "ref" against f32 (the SSM's CUDA scan
+                must refuse grad); a checkpoint round trip at full width
+                and 2 layers, bit for bit;
   8. moe_full_width — Qwen3-30B-A3B at its published width and depth (48
                 layers, 128 experts top-8) served as phase 5 serves the
                 14B (dropped (token, expert) pairs per prefill chunk and
@@ -79,6 +96,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import statistics
@@ -224,7 +242,7 @@ class Timer:
 # each kernel of the port by the prefix of its __global__ functions'
 # names in the profiler's events (the scan's three passes are mamba1_*)
 PORT_KERNELS = {"paged_attention": "paged_attention_", "flash_attention": "flash_attention_",
-                "mamba1_scan": "mamba1_"}
+                "flash_attention_bwd": "flash_attention_bwd_", "mamba1_scan": "mamba1_"}
 # the profiler's own device events, left out of every device time
 PROFILER_OVERHEAD = ("Activity Buffer Request", "Runtime Triggered Module Loading",
                      "Lazy Function Loading")
@@ -381,6 +399,68 @@ def flash_case(torch, F, timer, name, *, B, sq, sk, nq, nkv, hd, dtype,
             "max_abs_err": err, "ok": ok, "ms": ms, "profiler_ms": profiler_ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
             **extra}
+
+
+# the backward's products per visible (query, key) pair and head_dim
+# column: the recomputed S, dV, dP, dQ and dK, 2 operations each; the lse
+# that the backward recomputes (the forward does not write it) adds one S
+BWD_PRODUCTS = 5
+
+
+def flash_bwd_case(torch, F, timer, name, *, B, S, nq, nkv, hd, dtype, causal=True,
+                   window=0, seed=0, profile=False):
+    """The flash backward against its plain FA2 equations on the same
+    inputs and forward output, timed beside the plain version and
+    autograd of SDPA's backward (a yardstick the port never uses)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, S, nq, hd), generator=g, device="cuda").to(dt)
+    k = torch.randn((B, S, nkv, hd), generator=g, device="cuda").to(dt)
+    v = torch.randn((B, S, nkv, hd), generator=g, device="cuda").to(dt)
+    do = torch.randn((B, S, nq, hd), generator=g, device="cuda").to(dt)
+    kw = dict(causal=causal, window=window)
+    o = fa.flash_attention(q, k, v, **kw)
+    got = fa.flash_attention_bwd(q, k, v, o, do, **kw)
+    want = ref.flash_attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    errs = {n: compare(a, b, dtype) for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+    del got, want
+    mask = ref._mask(S, S, causal, window, "cuda")
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    lib_kw = ({"is_causal": causal} if not window
+              else {"attn_mask": mask})
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **lib_kw)
+    lib_do = do.transpose(1, 2)
+
+    def library():
+        torch.autograd.grad(lib_out, (qt, kt, vt), lib_do, retain_graph=True)
+
+    ms = timer(lambda: fa.flash_attention_bwd(q, k, v, o, do, **kw))
+    by_kernel = (timer.profiled_by_kernel(lambda: fa.flash_attention_bwd(q, k, v, o, do, **kw))
+                 if profile else None)
+    plain_ms = timer(lambda: ref.flash_attention_bwd(q, k, v, o, do, **kw), iters=3, warmup=1)
+    library_ms = timer(library)
+    del lib_out
+    pairs = int(mask.sum())
+    # read q, k, v, o and dO once, write dq, dk and dv once
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
+    flops = 2.0 * BWD_PRODUCTS * B * nq * hd * pairs
+    lse_flops = 2.0 * B * nq * hd * pairs
+    peak = dtype if dtype == "bfloat16" else "float32"   # f32 runs on the CUDA cores
+    b_ms, b_by = bound(nbytes, flops, peak)
+    return {"case": f"{name} [{'mma' if dtype == 'bfloat16' else 'simt'}]", "B": B, "S": S,
+            "nq": nq, "nkv": nkv, "hd": hd, "dtype": dtype, "causal": causal, "window": window,
+            "max_abs_err": max(e for e, _ in errs.values()),
+            "max_abs_err_by_output": {n: e for n, (e, _) in errs.items()},
+            "ok": all(ok for _, ok in errs.values()), "ms": ms,
+            "profiler_ms_by_kernel": by_kernel, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library": "autograd of F.scaled_dot_product_attention",
+            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+            "flops_lse_recompute": lse_flops,
+            "bound_ms_with_lse_recompute": bound(nbytes, flops + lse_flops, peak)[0],
+            "tflops_per_s": flops / ms / 1e9}
 
 
 # per (t, channel, state): dt * A, exp, * h, dt * B, * x, +, * C and the
@@ -550,7 +630,28 @@ def phase_kernels(torch, F):
                            h0=False, seed=2))
     scan += [mamba_continuation_case(torch, 4 * chunk),
              mamba_continuation_case(torch, 4 * chunk + 1)]
-    return {"paged_attention": paged, "flash_attention": flash, "mamba1_scan": scan}
+    bwd = [
+        # InternLM2-1.8B's training shape (phase train_full_width)
+        flash_bwd_case(torch, F, timer, "internlm2-1.8b train bf16 causal", B=4, S=2048, nq=16,
+                       nkv=8, hd=128, dtype="bfloat16", seed=30, profile=True),
+        # the smoke configs' attention (tiny_lm and the tests train in f32)
+        flash_bwd_case(torch, F, timer, "smoke f32 hd 32 causal GQA", B=2, S=128, nq=8, nkv=4,
+                       hd=32, dtype="float32", seed=31),
+        # Mixtral's heads under a sliding window (its SWA)
+        flash_bwd_case(torch, F, timer, "mixtral heads bf16 causal window 512", B=1, S=2048,
+                       nq=32, nkv=8, hd=128, dtype="bfloat16", window=512, seed=32),
+        # HuBERT-XLarge's encoder: non-causal, hd 80
+        flash_bwd_case(torch, F, timer, "hubert-xlarge bf16 non-causal hd 80", B=2, S=1000,
+                       nq=16, nkv=16, hd=80, dtype="bfloat16", causal=False, seed=33),
+        flash_bwd_case(torch, F, timer, "ragged S 1000 bf16 causal", B=1, S=1000, nq=16, nkv=8,
+                       hd=128, dtype="bfloat16", seed=34),
+        flash_bwd_case(torch, F, timer, "ragged S 77 f32 non-causal hd 80", B=1, S=77, nq=4,
+                       nkv=2, hd=80, dtype="float32", causal=False, seed=35),
+        flash_bwd_case(torch, F, timer, "hd 64 bf16 window 100 non-causal", B=2, S=300, nq=8,
+                       nkv=2, hd=64, dtype="bfloat16", causal=False, window=100, seed=36),
+    ]
+    return {"paged_attention": paged, "flash_attention": flash, "flash_attention_bwd": bwd,
+            "mamba1_scan": scan}
 
 
 # ---------------------------------------------------------------------------
@@ -1069,6 +1170,311 @@ def phase_full_width(torch):
     out = serve_paged_full_width(torch, "qwen2_5_14b", prefix_cache=True)
     out.update({"phase": "full_width", "layers_published": 48})
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase train_full_width: InternLM2-1.8B trained at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "internlm2_1_8b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 3
+# gradients of one bf16 step.  Kernels and plain attention round to bf16
+# at other places, and every later bf16 rounding of the model follows
+# from the earlier ones, so the two bf16 runs differ as two independent
+# draws of the model's bf16 error do, while each attention call agrees
+# with the plain version to the bf16 rounding of its output.  So each
+# leaf's gradient is held against the same model run in f32 (plain attention): the
+# kernels' error at most twice the plain bf16 run's (FlashAttention's
+# own test criterion), and the loss and the gradient norm to 2e-2 of the
+# plain bf16 run's
+GRAD_RTOL = 2e-2
+GRAD_ERROR_RATIO = 2.0
+# the families trained one step on the card with backend "cuda" against
+# "ref" (smoke configs): dense, MoE with a sliding window, VLM, the
+# non-causal audio encoder, hybrid; the SSM's CUDA scan has no backward
+FAMILY_ARCHS = ("internlm2_1_8b", "mixtral_8x7b", "chameleon_34b", "hubert_xlarge",
+                "zamba2_2_7b")
+SSM_ARCH = "falcon_mamba_7b"
+
+
+def train_flops(cfg, batch: int, seq: int) -> dict:
+    """Operations of one training step (remat per block), from the shapes:
+    ``model`` is what the model needs (6 N T for the products, 12 per
+    visible (query, key) pair, head and head_dim column for attention's
+    two forward and four backward products), ``executed`` adds the blocks'
+    recomputed forward (2 N T, 4 per pair) and the backward kernel's
+    recomputed S and lse (4 per pair)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    per_layer = (d * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd + cfg.num_heads * hd * d
+                 + 3 * d * cfg.d_ff)
+    blocks, head = cfg.num_layers * per_layer, d * cfg.vocab_size
+    tokens = batch * seq
+    attn = batch * cfg.num_heads * hd * seq * (seq + 1) // 2 * cfg.num_layers   # causal
+    model = 6.0 * (blocks + head) * tokens + 12.0 * attn
+    executed = model + 2.0 * blocks * tokens + 8.0 * attn
+    return {"model": model, "executed": executed, "matmul_params": blocks + head}
+
+
+def _rel_err(got, want) -> float:
+    """||got - want|| / ||want||, in f32."""
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def attention_layers(cfg) -> int:
+    if cfg.arch_type == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_every
+    return cfg.num_layers
+
+
+def compare_grads(torch, cfg, params, x, y, what: str) -> dict:
+    """One loss and gradient with backend "cuda" and with "ref" on the same
+    weights and batch, and with "ref" on an f32 copy of the model: loss
+    and grad norm, every leaf's error against the f32 run (the norm of
+    the difference over the f32 gradient's norm), and the flash kernels'
+    launches of the "cuda" run (with remat, two forward launches and one
+    backward launch per attention layer)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as st
+    runs = {"cuda": (cfg, params), "ref": (cfg, params),
+            "ref_f32": (cfg.replace(dtype="float32"), tree_map(lambda t: t.float(), params))}
+    out = {}
+    for name, (rcfg, rparams) in runs.items():
+        ops.set_backend(name.split("_")[0])
+        fa.launches.reset()
+        fa.bwd_launches.reset()
+        try:
+            loss, _, grads = st.loss_and_grads(rcfg, rparams, x, y)
+            torch.cuda.synchronize()
+        finally:
+            ops.set_backend("auto")
+        out[name] = (loss, opt.global_norm(grads), dict(_named_leaves(grads)),
+                     (fa.launches.value, fa.bwd_launches.value))
+    del runs
+    (lc, nc, gc_, launched), (lr, nr, gr, _), (_, _, g32, _) = (out[k] for k in
+                                                                ("cuda", "ref", "ref_f32"))
+    leaf_errs = {name: (_rel_err(gc_[name], g32[name]), _rel_err(gr[name], g32[name]))
+                 for name in g32}
+    res = {"loss_cuda": float(lc), "loss_ref": float(lr),
+           "grad_norm_cuda": float(nc), "grad_norm_ref": float(nr),
+           "loss_rel_err": abs(float(lc) - float(lr)) / abs(float(lr)),
+           "grad_norm_rel_err": abs(float(nc) - float(nr)) / float(nr),
+           "leaf_grad_err_vs_f32": {k: {"cuda": e[0], "ref": e[1]} for k, e in
+                                    leaf_errs.items()},
+           "leaf_grad_err_vs_f32_max": {"cuda": max(e[0] for e in leaf_errs.values()),
+                                        "ref": max(e[1] for e in leaf_errs.values())},
+           "leaf_grad_cuda_vs_ref_max": max(_rel_err(gc_[k], gr[k]) for k in gr),
+           "flash_launches": launched[0], "flash_bwd_launches": launched[1]}
+    bad = [k for k in ("loss_rel_err", "grad_norm_rel_err") if not res[k] <= GRAD_RTOL]
+    bad += [k for k, (ec, er) in leaf_errs.items()
+            if not ec <= max(GRAD_ERROR_RATIO * er, TOL[cfg.dtype])]
+    n_attn = attention_layers(cfg)
+    if launched != (2 * n_attn, n_attn):
+        bad.append(f"launches {launched}, expected {(2 * n_attn, n_attn)}")
+    if bad or not (torch.isfinite(lc) and torch.isfinite(nc)):
+        fail(f"{what}: backend cuda against ref: {bad} {res}")
+    return res
+
+
+def run_train_launcher(torch, argv) -> dict:
+    """``python -m repro_torch.launch.train`` in this process (its device
+    is the default, cuda): wall time, the printed step lines, peak
+    memory and the flash kernels' launches."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as launch_train
+    fa.launches.reset()
+    fa.bwd_launches.reset()
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        launch_train.main(argv)
+    torch.cuda.synchronize()
+    lines = out.getvalue().splitlines()
+    losses = [float(line.split("loss")[1].split()[0]) for line in lines if "loss" in line]
+    if not lines or not all(math.isfinite(x) for x in losses):
+        fail(f"train launcher {argv}: printed {lines}")
+    return {"argv": argv, "seconds": time.perf_counter() - t, "lines": lines,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "flash_launches": fa.launches.value, "flash_bwd_launches": fa.bwd_launches.value}
+
+
+def phase_train_full_width(torch):
+    """InternLM2-1.8B at its published width and depth trained through the
+    port's entry points (train/step.py, as launch/train.py drives it), on
+    seeded random weights and the synthetic TokenStream."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.pipelines import tiny_lm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train import checkpoint
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as st
+    from repro_torch.train.data import TokenStream
+    cfg = get_config(TRAIN_ARCH)
+    _free(torch)
+    free, total = torch.cuda.mem_get_info()
+    # bf16 weights and grads, f32 moments, and room for the activations
+    need = cfg.param_count() * (2 + 2 + 8) + 16e9
+    if free < need:
+        fail(f"train_full_width: {free / 1e9:.1f} GB free, need {need / 1e9:.1f} GB")
+
+    def batch(stream):
+        b = next(stream)
+        return (torch.from_numpy(b["inputs"]).cuda(), torch.from_numpy(b["labels"]).cuda())
+
+    t = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in opt.leaves(params))
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    x, y = batch(stream)
+    init_s = time.perf_counter() - t
+
+    # (a) one step's loss and gradients, kernels against plain attention
+    t = time.perf_counter()
+    parity = compare_grads(torch, cfg, params, x, y, "train_full_width")
+    parity["seconds"] = time.perf_counter() - t
+    _free(torch)
+
+    # (b) AdamW steps with the kernels
+    opt_cfg = opt.AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    state = opt.init_opt_state(params)
+    step_fn = st.make_train_step(cfg, opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps, fwd, bwd = [], 0, 0
+    for i in range(TRAIN_STEPS):
+        x, y = batch(stream)
+        torch.cuda.synchronize()
+        fa.launches.reset()
+        fa.bwd_launches.reset()
+        t = time.perf_counter()
+        params, state, m = step_fn(params, state, x, y)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        fwd += fa.launches.value
+        bwd += fa.bwd_launches.value
+        steps.append({"ms": 1e3 * dt, "loss": float(m["loss"]), "grad_norm":
+                      float(m["grad_norm"]), "lr": float(m["lr"]),
+                      "flash_launches": fa.launches.value,
+                      "flash_bwd_launches": fa.bwd_launches.value})
+    peak = torch.cuda.max_memory_allocated()
+    # one more step under the profiler: the device's busy share and where
+    # its time goes
+    px, py = batch(stream)
+    profile = device_profile(torch, lambda: step_fn(params, state, px, py), top_n=12)[1]
+    if not all(np.isfinite([s_["loss"], s_["grad_norm"]]).all() for s_ in steps):
+        fail(f"train_full_width: non-finite loss or grad norm {steps}")
+    per_step = [s_["flash_launches"] for s_ in steps], [s_["flash_bwd_launches"] for s_ in steps]
+    if set(per_step[0]) != {2 * cfg.num_layers} or set(per_step[1]) != {cfg.num_layers}:
+        fail(f"train_full_width: flash launches per step {per_step}, expected "
+             f"{2 * cfg.num_layers} forward and {cfg.num_layers} backward")
+    steady_ms = statistics.mean(s_["ms"] for s_ in steps[1:])
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    step_s = steady_ms / 1e3
+    del state, m, params
+    _free(torch)
+
+    # (b2) the same through the entry point a user calls: the launcher
+    launcher = run_train_launcher(torch, ["--arch", TRAIN_ARCH, "--full-config", "--batch",
+                                          str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                                          "--steps", str(TRAIN_STEPS), "--lr", "1e-4"])
+    if (launcher["flash_launches"], launcher["flash_bwd_launches"]) != (
+            2 * cfg.num_layers * TRAIN_STEPS, cfg.num_layers * TRAIN_STEPS):
+        fail(f"train_full_width: the launcher's flash launches {launcher}")
+    _free(torch)
+
+    # (c) tiny_lm's loss falls over 30 steps, as tests/test_train.py requires of JAX
+    tcfg = tiny_lm("train_t", vocab=64)
+    tparams = T.init_params(tcfg, torch.Generator(device="cuda").manual_seed(0))
+    tstate = opt.init_opt_state(tparams)
+    tstep = st.make_train_step(tcfg, opt.AdamWConfig(lr=1e-3, warmup_steps=5,
+                                                     total_steps=100))
+    tstream = TokenStream(tcfg, 8, 32, seed=0)
+    fa.launches.reset()
+    fa.bwd_launches.reset()
+    losses = []
+    for _ in range(30):
+        tx, ty = batch(tstream)
+        tparams, tstate, tm = tstep(tparams, tstate, tx, ty)
+        losses.append(float(tm["loss"]))
+    tiny = {"losses_every_10": losses[::10] + [losses[-1]],
+            "flash_launches": fa.launches.value, "flash_bwd_launches": fa.bwd_launches.value}
+    if not (np.isfinite(losses).all() and losses[-1] < 0.9 * losses[0]):
+        fail(f"train_full_width: tiny_lm's loss did not fall: {losses}")
+    if (tiny["flash_launches"], tiny["flash_bwd_launches"]) != (60 * tcfg.num_layers,
+                                                               30 * tcfg.num_layers):
+        fail(f"train_full_width: tiny_lm's flash launches {tiny}")
+
+    # (d) one step of each family's smoke config, kernels against plain
+    families = {}
+    for arch in FAMILY_ARCHS:
+        fcfg = get_config(arch, smoke=True)
+        fparams = T.init_params(fcfg, torch.Generator(device="cuda").manual_seed(1))
+        fx, fy = batch(TokenStream(fcfg, 2, 128, seed=1))
+        families[arch] = compare_grads(torch, fcfg, fparams, fx, fy, f"family {arch}")
+    scfg = get_config(SSM_ARCH, smoke=True)
+    sparams = T.init_params(scfg, torch.Generator(device="cuda").manual_seed(1))
+    sx, sy = batch(TokenStream(scfg, 2, 64, seed=1))
+    try:
+        st.loss_and_grads(scfg, sparams, sx, sy)
+        fail("train_full_width: the SSM's CUDA scan took a gradient (it has no backward)")
+    except NotImplementedError as e:
+        families[SSM_ARCH] = {"refused": str(e)}
+
+    # (e) checkpoint round trip at full width and 2 layers' depth, after one step
+    ccfg = cfg.replace(num_layers=2)
+    cparams = T.init_params(ccfg, torch.Generator(device="cuda").manual_seed(2))
+    cstate = opt.init_opt_state(cparams)
+    cparams, cstate, _ = st.make_train_step(ccfg, opt_cfg)(cparams, cstate, *batch(stream))
+    path = os.path.join(ROOT, "build", "train_ckpt", "ck.npz")
+    t = time.perf_counter()
+    checkpoint.save(path, cparams, cstate, step=1)
+    lp, ls, lstep = checkpoint.load(path, tree_map(torch.zeros_like, cparams),
+                                    tree_map(torch.zeros_like, cstate))
+    ck_s = time.perf_counter() - t
+    ck_bytes = os.path.getsize(path)
+    os.remove(path)
+    same = all(a.dtype == b.dtype and a.device == b.device and torch.equal(
+        a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+        b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+        for a, b in zip(opt.leaves({"p": cparams, "o": cstate}), opt.leaves({"p": lp, "o": ls})))
+    if not (same and lstep == 1):
+        fail("train_full_width: the checkpoint did not round-trip bit for bit")
+    del cparams, cstate, lp, ls
+    _free(torch)
+    return {"phase": "train_full_width", "arch": TRAIN_ARCH, "source": cfg.source,
+            "layers": cfg.num_layers, "d_model": cfg.d_model, "params": n_params,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "init_seconds": init_s,
+            "parity": parity, "steps": steps, "ms_per_step": steady_ms,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+            "flops_model": flops["model"], "flops_executed": flops["executed"],
+            "bound_ms_bf16": 1e3 * flops["executed"] / PEAK_FLOPS["bfloat16"],
+            "share_of_bf16_peak_executed": flops["executed"] / step_s / PEAK_FLOPS["bfloat16"],
+            "share_of_bf16_peak_model": flops["model"] / step_s / PEAK_FLOPS["bfloat16"],
+            "peak_memory_bytes": peak, "free_bytes_before": free, "total_bytes": total,
+            "profiled_step": profile,
+            "flash_launches_per_step": 2 * cfg.num_layers,
+            "flash_bwd_launches_per_step": cfg.num_layers,
+            "launches": {"flash_attention": fwd, "flash_attention_bwd": bwd},
+            "launcher": launcher, "tiny_lm": tiny, "families": families,
+            "checkpoint": {"layers": 2, "bytes": ck_bytes, "seconds": ck_s, "bitwise": same}}
 
 
 MOE_ARCH = "qwen3_moe_30b_a3b"
@@ -1774,7 +2180,30 @@ def profiled_prefill(torch, runner, cfg, reqs, *, longest):
     return prof
 
 
-def device_profile(torch, fn):
+def port_kernel_of(name: str):
+    """The port's kernel a device event belongs to: the longest matching
+    prefix of ``PORT_KERNELS`` (the backward's kernels are
+    flash_attention_bwd_*, not the forward's)."""
+    hits = [k for k, p in PORT_KERNELS.items() if p in name]
+    return max(hits, key=lambda k: len(PORT_KERNELS[k])) if hits else None
+
+
+def kernel_category(name: str) -> str:
+    """A device event's kind: one of the port's kernels, a library matrix
+    product (cuBLAS's nvjet / gemm kernels), a copy, or PyTorch's other
+    kernels (elementwise and reductions)."""
+    port = port_kernel_of(name)
+    if port:
+        return port
+    low = name.lower()
+    if any(k in low for k in ("nvjet", "gemm", "cutlass", "xmma")):
+        return "matmul"
+    if "memcpy" in low or "memset" in low:
+        return "copy"
+    return "reduce" if "reduce_kernel" in low else "elementwise and other"
+
+
+def device_profile(torch, fn, top_n: int = 6):
     """Run ``fn()`` under torch.profiler; return its result and its wall
     time, the device time of the kernels and copies it ran (device-side
     events, from every thread), their share of the wall time (the device's
@@ -1792,14 +2221,20 @@ def device_profile(torch, fn):
         if e.device_type == DeviceType.CUDA and e.name not in PROFILER_OVERHEAD:
             per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
     device_s = sum(per.values()) / 1e6
-    top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+    short, by_category = {}, {}
+    for name, us in per.items():     # kernels that share a 60-character prefix summed
+        short[name[:60]] = short.get(name[:60], 0.0) + us
+        cat = kernel_category(name)
+        by_category[cat] = by_category.get(cat, 0.0) + us / 1e3
+    top = sorted(short.items(), key=lambda kv: -kv[1])[:top_n]
     # device time of each kernel of the port, all its launches (split and
     # combine kernels of paged attention together)
-    ours = {k: sum(us for n, us in per.items() if p in n) / 1e3
-            for k, p in PORT_KERNELS.items()}
+    ours = {k: sum(us for n, us in per.items() if port_kernel_of(n) == k) / 1e3
+            for k in PORT_KERNELS}
     return result, {"wall_ms": 1e3 * wall, "device_ms": 1e3 * device_s,
                     "device_busy_share": device_s / wall if device_s else None,
-                    "top_device_ms": {k[:60]: us / 1e3 for k, us in top},
+                    "top_device_ms": {k: us / 1e3 for k, us in top},
+                    "device_ms_by_category": by_category,
                     "port_kernels_device_ms": ours}
 
 
@@ -1820,6 +2255,9 @@ KERNEL_META = {
     "flash_attention": {
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:73"},
+    "flash_attention_bwd": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/ops.py:55"},
     "mamba1_scan": {
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan.py:58"},
@@ -1961,6 +2399,11 @@ def main() -> int:
     emit(hybrid)
 
     t = time.perf_counter()
+    train = phase_train_full_width(torch)
+    train["seconds"] = time.perf_counter() - t
+    emit(train)
+
+    t = time.perf_counter()
     moe = phase_moe_full_width(torch)
     moe["seconds"] = time.perf_counter() - t
     emit(moe)
@@ -1972,7 +2415,14 @@ def main() -> int:
                                   "moe_full_width": moe["paged_launches"]},
               "flash_attention": {"qwen_omni": launches["flash_attention"],
                                   "monolithic": mono_launches,
-                                  "hybrid": hybrid["launches"]},
+                                  "hybrid": hybrid["launches"],
+                                  "train_full_width": train["launches"]["flash_attention"],
+                                  "train_full_width.launcher":
+                                      train["launcher"]["flash_launches"]},
+              "flash_attention_bwd": {
+                  "train_full_width": train["launches"]["flash_attention_bwd"],
+                  "train_full_width.launcher": train["launcher"]["flash_bwd_launches"],
+                  "train_full_width.tiny_lm": train["tiny_lm"]["flash_bwd_launches"]},
               "mamba1_scan": {"ssm_full_width": ssm["launches"]}}
     for name, n in pipe_launches.items():
         for k in ("paged_attention", "flash_attention"):
@@ -1985,7 +2435,8 @@ def main() -> int:
     kernels = []
     for name, meta in KERNEL_META.items():
         # the first case is the shape the main path gives the kernel most
-        # often: the qwen_omni slice, the vocoder, Falcon-Mamba's decode
+        # often: the qwen_omni slice, the vocoder, InternLM2's training
+        # shape, Falcon-Mamba's decode
         head = cases[name][0]
         lib = head["library_ms"]
         kernels.append({

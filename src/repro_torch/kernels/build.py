@@ -36,6 +36,8 @@ ENTRY_POINTS = {
                         [_P] * 9 + [_I] * 11 + [_F, _P]),
     "flash_attention": ("flash_attention_launch",
                         [_P] * 4 + [_I] * 6 + [_L] * 9 + [_I] * 3 + [_F, _P]),
+    "flash_attention_bwd": ("flash_attention_bwd_launch",
+                            [_P] * 10 + [_I] * 5 + [_L] * 15 + [_I] * 3 + [_F, _P]),
     "mamba_scan": ("mamba1_scan_launch",
                    [_P] * 10 + [_I] * 5 + [_L] * 8 + [_I, _P]),
 }

@@ -6,9 +6,17 @@ Backends:
             device, so a run set to "cuda" cannot reach anything else.
   - "auto": "cuda" when the tensors lie on a CUDA device, else "ref".
 
-Set globally with ``set_backend`` or per call with ``backend=``.  Forward
-only: the recompute backward of the JAX package's ``custom_vjp`` belongs
-to the training slice.
+Set globally with ``set_backend`` or per call with ``backend=``.
+
+Gradients.  The plain versions are differentiated by autograd.  On the
+CUDA path, ``flash_attention`` under grad (grad mode on and an input that
+requires grad) runs ``FlashAttention``, the counterpart of the JAX
+package's ``flash_attention_trainable`` custom VJP: the CUDA forward, and
+a CUDA backward that recomputes the scores from the saved q, k, v and
+output (no O(S^2) residual is kept).  Without grad the serving path is
+unchanged: the forward kernel alone.  ``mamba1_scan``'s kernel has no
+backward (nor has the JAX package's: its Pallas scan has no custom VJP),
+so its CUDA path raises under grad rather than run the plain version.
 """
 from __future__ import annotations
 
@@ -40,11 +48,41 @@ def _use_cuda(x: torch.Tensor, backend: str | None, op: str) -> bool:
     return b == "cuda"
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, backend=None):
     if _use_cuda(q, backend, "flash_attention"):
+        if _needs_grad(q, k, v):
+            return FlashAttention.apply(q, k, v, causal, window)
         from repro_torch.kernels import flash_attention as fa
         return fa.flash_attention(q, k, v, causal=causal, window=window)
     return ref.flash_attention(q, k, v, causal=causal, window=window)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the kernels' forward and backward: the port's
+    ``flash_attention_trainable``.  Saves q, k, v and the output; the
+    backward recomputes the scores.  On CPU tensors both run the plain
+    versions (the wrappers' rule), so the CPU tests reach it too."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        from repro_torch.kernels import flash_attention as fa
+        o = fa.flash_attention(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from repro_torch.kernels import flash_attention as fa
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, do, causal=ctx.causal,
+                                            window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window=0, backend=None,
@@ -71,6 +109,10 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
 
 def mamba1_scan(x, dt, A, B, C, D, h0=None, *, backend=None):
     if _use_cuda(x, backend, "mamba1_scan"):
+        if _needs_grad(x, dt, A, B, C, D, h0):
+            raise NotImplementedError(
+                "mamba1_scan: the CUDA scan has no backward yet; differentiate the plain "
+                "version with backend='ref' (or on the CPU)")
         from repro_torch.kernels import mamba_scan as ms
         return ms.mamba1_scan(x, dt, A, B, C, D, h0)
     return ref.mamba1_scan(x, dt, A, B, C, D, h0)

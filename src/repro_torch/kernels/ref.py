@@ -4,9 +4,12 @@ They compute what the CUDA kernels compute, in the most direct way, and
 are the numerically trusted side of every comparison: the CPU tests hold
 them against the JAX package's oracles, and ``chip_smoke.py`` holds each
 CUDA kernel against them on the card.  On a CPU tensor the kernel
-wrappers run these functions; on the card nothing on the serving path
-uses them unless the backend is set to ``"ref"`` (``mamba2_scan`` is the
-exception: it has no kernel in either package).
+wrappers run these functions; on the card nothing on the serving or
+training path uses them unless the backend is set to ``"ref"``
+(``mamba2_scan`` is the exception: it has no kernel in either package).
+``flash_attention_bwd`` is the plain version of the attention backward
+kernel; the CPU's training path differentiates ``flash_attention`` with
+autograd instead.
 
 Attention uses grouped (GQA) einsums: K/V are never repeated to
 ``num_heads``.  Masked scores take the finite ``-2**30``, so a row with
@@ -50,15 +53,52 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     nkv, sk = k.shape[2], k.shape[1]
     scale = scale if scale is not None else hd ** -0.5
     qg = _group(q, nkv).float() * scale
-    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    out = _attend(qg, k, v, _mask(sq, sk, causal, window, q.device))
+    return out.reshape(b, sq, nq, hd).to(q.dtype)
+
+
+def _mask(sq: int, sk: int, causal: bool, window: int, device) -> torch.Tensor:
+    """(Sq, Sk) visibility: query i at position i + Sk - Sq sees key j iff
+    (not causal or j <= position) and (window == 0 or j > position - window)."""
+    qpos = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
         mask &= kpos <= qpos
     if window > 0:
         mask &= kpos > qpos - window
-    out = _attend(qg, k, v, mask)
-    return out.reshape(b, sq, nq, hd).to(q.dtype)
+    return mask
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, scale: float | None = None):
+    """Gradient of ``flash_attention`` written out as FlashAttention-2's
+    backward equations in f32 (not autograd): recompute S = scale Q K^T
+    (masked to -2**30) and its row logsumexp, P = exp(S - lse),
+    D = rowsum(dO * O), dV = P^T dO, dP = dO V^T, dS = P * (dP - D),
+    dQ = scale dS K, dK = scale dS^T Q.  dK and dV sum over each group's
+    query heads (GQA).
+
+    q, o, do: (B, Sq, nq, hd); k, v: (B, Sk, nkv, hd); ``o`` is the
+    forward's output.  Returns (dq, dk, dv) in the types of q, k and v.
+    """
+    b, sq, nq, hd = q.shape
+    nkv, sk = k.shape[2], k.shape[1]
+    scale = scale if scale is not None else hd ** -0.5
+    qg = _group(q, nkv).float()                                   # (B,S,nkv,g,hd)
+    dog = _group(do, nkv).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bskgh,btkh->bkgst", qg * scale, kf)         # (B,nkv,g,Sq,Sk)
+    s = torch.where(_mask(sq, sk, causal, window, q.device), s, _NEG_INF)
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    d = (dog * _group(o, nkv).float()).sum(-1)                    # (B,Sq,nkv,g)
+    dv = torch.einsum("bkgst,bskgh->btkh", p, dog)
+    dp = torch.einsum("bskgh,btkh->bkgst", dog, vf)
+    ds = p * (dp - d.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgst,btkh->bskgh", ds, kf) * scale
+    dk = torch.einsum("bkgst,bskgh->btkh", ds, qg) * scale
+    return dq.reshape(b, sq, nq, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -92,15 +132,8 @@ def flash_attention_tf32x3(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     nkv, sk = k.shape[2], k.shape[1]
     scale = scale if scale is not None else hd ** -0.5
     qg = _group(q, nkv).float() * scale
-    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window > 0:
-        mask &= kpos > qpos - window
     s = _einsum_tf32x3("bskgh,btkh->bkgst", qg, k.float())
-    s = torch.where(mask, s, _NEG_INF)
+    s = torch.where(_mask(sq, sk, causal, window, q.device), s, _NEG_INF)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     out = _einsum_tf32x3("bkgst,btkh->bskgh", p, v.float())
     out = out / p.sum(-1).permute(0, 3, 1, 2)[..., None]

@@ -2,7 +2,7 @@
 dense / MoE / SSM / hybrid / encoder / VLM configs.
 
   init_params(cfg, gen)                          -> params
-  forward_full(cfg, params, inputs)              -> (logits, aux)      encode / recompute
+  forward_full(cfg, params, inputs, remat=True)  -> (logits, aux)      train / encode
   forward_prefill(cfg, params, inputs, max_seq)  -> (logits, cache)    fill a dense cache
   init_decode_cache(cfg, batch, max_seq, device) -> cache
   forward_decode(cfg, params, cache, tok, pos)   -> (logits, cache)    one token
@@ -17,10 +17,21 @@ layers loop in Python where the JAX package scans them.
 
 ``forward_decode`` updates the cache in place (the JAX package returns a
 new one): a full-width cache is not copied every step.
+
+Under autograd ``forward_full`` recomputes activations as the JAX
+package's ``remat`` does (``torch.utils.checkpoint``), and cuts each
+stacked leaf into its layers once (``torch.unbind``) rather than
+indexing it per layer: the backward of ``a[i]`` writes a zero tensor of
+the whole stack for every layer, that of ``unbind`` stacks the layers'
+gradients once.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -84,29 +95,83 @@ def _block(params: dict, i: int) -> dict:
 
 
 # ----------------------------------------------------------------------------
-# full-sequence forward (encode / recompute)
+# full-sequence forward (train / encode)
 # ----------------------------------------------------------------------------
 
+# the products that remat="dots" keeps: those with no batch dimension, as
+# jax.checkpoint_policies.dots_with_no_batch_dims_saveable (the MoE
+# experts' batched products and the attention are recomputed)
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(body, remat):
+    """remat: False | True (recompute the whole body in the backward) |
+    "dots" (keep the products' outputs, recompute the rest).  Only under
+    autograd: without it there is nothing to recompute for."""
+    if not remat or not torch.is_grad_enabled():
+        return body
+    if remat == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts, _save_products)
+        return lambda *a: checkpoint(body, *a, use_reentrant=False, context_fn=ctx)
+    return lambda *a: checkpoint(body, *a, use_reentrant=False)
+
+
+def _unbind_layers(tree, n: int) -> list:
+    """A stacked tree as ``n`` per-layer trees (``torch.unbind`` per leaf)."""
+    if isinstance(tree, dict):
+        per = {k: _unbind_layers(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return torch.unbind(tree, 0)
+
+
 def forward_full(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
-                 positions: torch.Tensor | None = None):
+                 positions: torch.Tensor | None = None, remat=True):
     """inputs: int tokens (B, S) or float frames (B, S, d).  Returns
     (logits (B, S, V), aux): the MoE layers' summed load-balance loss, a
-    0-d f32 zero for the other families.  Forward only: the JAX package's
-    ``remat`` (activation recompute for its backward) waits for the
-    training slice."""
+    0-d f32 zero for the other families.  ``remat`` as ``_remat_wrap``:
+    per block, per Mamba layer, per hybrid group."""
     _check_family(cfg, "forward_full")
     x = _embed(cfg, params, inputs)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.arch_type in _STATE_FAMILIES:
-        x, _ = _state_backbone(cfg, params, x, positions)
+        x = _state_backbone_full(cfg, params, x, positions, remat)
     else:
-        for i in range(cfg.num_layers):
-            x, a = L.block_full(cfg, _block(params, i), x, positions,
-                                causal=not cfg.is_encoder)
+        causal = not cfg.is_encoder
+        body = _remat_wrap(lambda lp, h: L.block_full(cfg, lp, h, positions, causal=causal),
+                           remat)
+        for lp in _unbind_layers(params["blocks"], cfg.num_layers):
+            x, a = body(lp, x)
             aux = aux + a
     return _unembed(cfg, params, x), aux
+
+
+def _state_backbone_full(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                         positions: torch.Tensor, remat) -> torch.Tensor:
+    """The SSM / hybrid layers over a whole sequence, states dropped."""
+    layers = _unbind_layers(params["mamba"], cfg.num_layers)
+    if cfg.arch_type == "ssm":
+        body = _remat_wrap(lambda lp, h: M.mamba_block(cfg, lp, h)[0], remat)
+        for lp in layers:
+            x = body(lp, x)
+        return x
+
+    def group(shared, h, *lps):
+        for lp in lps:
+            h, _ = M.mamba_block(cfg, lp, h)
+        return L.block_full(cfg, shared, h, positions, causal=True)[0]
+
+    group = _remat_wrap(group, remat)
+    gs = cfg.shared_attn_every
+    for g in range(_n_sites(cfg)):
+        x = group(params["shared_attn"], x, *layers[g * gs:(g + 1) * gs])
+    return x
 
 
 # ----------------------------------------------------------------------------

@@ -455,3 +455,161 @@ def test_bf16_kv_hop_round_trip_is_bit_exact_on_the_card(cuda):
     assert tag == "bfloat16" and k.dtype.name == "int16"
     for pool in (runner.k_pages, runner.v_pages):
         assert torch.equal(pool[:, dst[:3]].view(torch.int16), pool[:, src[:3]].view(torch.int16))
+
+
+# ---------------------------------------------------------------------------
+# the flash backward (training)
+# ---------------------------------------------------------------------------
+
+def _bwd_inputs(gen, b, s, nq, nkv, hd, dtype):
+    q = torch.randn((b, s, nq, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, s, nkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, s, nkv, hd), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((b, s, nq, hd), generator=gen, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+def _assert_bwd_close(got, want, dtype):
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == dtype and g.is_contiguous(), name
+        torch.testing.assert_close(g.float(), w.float(), **_tol(dtype), msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128])
+@pytest.mark.parametrize("b,s,nq,nkv,causal,window", [
+    (2, 128, 8, 2, True, 0),       # causal, GQA 4, whole tiles
+    (1, 77, 4, 4, False, 0),       # non-causal (the encoder), ragged S
+    (1, 200, 10, 2, True, 64),     # a window across tiles, GQA 5
+    (1, 130, 4, 1, False, 33),     # a window without causality, GQA 4
+    (2, 1, 4, 2, True, 0)])        # one row
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, hd, b, s, nq, nkv, causal, window):
+    """bf16 on the mma.sync kernels, f32 on the CUDA-core ones, against the
+    plain FlashAttention-2 equations on the same inputs and output."""
+    q, k, v, do = _bwd_inputs(cuda, b, s, nq, nkv, hd, dtype)
+    o = ref.flash_attention(q, k, v, causal=causal, window=window)
+    n = fa.bwd_launches.value
+    got = fa.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches.value == n + 1
+    want = ref.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    _assert_bwd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("kind", ["qkv", "padded", "offset"])
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 32), (torch.bfloat16, 128),
+                                      (torch.bfloat16, 80)])
+def test_flash_bwd_kernel_reads_strided_inputs(cuda, kind, dtype, hd):
+    """q, k, v and dO as views (strided, rows padded, base one element in):
+    tiles are copied in 16-byte pieces only where every row allows it."""
+    q, k, v = _views(kind, cuda, 2, 140, 4, hd, dtype)
+    do = _views(kind, cuda, 2, 140, 4, hd, dtype)[1]
+    o = ref.flash_attention(q, k, v, causal=True, window=50)
+    got = fa.flash_attention_bwd(q, k, v, o, do, causal=True, window=50)
+    want = ref.flash_attention_bwd(q, k, v, o, do, causal=True, window=50)
+    _assert_bwd_close(got, want, dtype)
+
+
+def test_flash_bwd_takes_equal_lengths_only(cuda):
+    q, k, v, do = _bwd_inputs(cuda, 1, 32, 4, 2, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        fa.flash_attention_bwd(q, k[:, :16], v[:, :16], q, do)
+    with pytest.raises(ValueError, match="head_dim"):
+        z = torch.zeros((1, 4, 2, 48), device="cuda")
+        fa.flash_attention_bwd(z, z, z, z, z)
+
+
+def test_flash_bwd_failure_raises_without_fallback(cuda, monkeypatch):
+    """A failed launch of the backward is an error: no plain version, no
+    launch counted."""
+    class FailingLib:
+        def flash_attention_bwd_launch(self, *args):
+            return 9            # cudaErrorInvalidConfiguration
+
+        def repro_cuda_error_string(self, code):
+            return b"invalid configuration argument"
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version was called")
+
+    monkeypatch.setattr(build, "load", lambda name: FailingLib())
+    monkeypatch.setitem(build._libs, "flash_attention_bwd", FailingLib())
+    monkeypatch.setattr(ref, "flash_attention_bwd", no_plain)
+    q, k, v, do = _bwd_inputs(cuda, 1, 64, 4, 2, 64, torch.bfloat16)
+    n = fa.bwd_launches.value
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        fa.flash_attention_bwd(q, k, v, q, do)
+    assert fa.bwd_launches.value == n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_under_grad_runs_both_kernels(cuda, dtype, monkeypatch):
+    """``ops.flash_attention`` under autograd on the card: the forward and
+    the backward kernel once each, no plain version, grads as autograd of
+    the plain version gives."""
+    q, k, v, do = _bwd_inputs(cuda, 2, 96, 8, 2, 64, dtype)
+    want = torch.autograd.grad(ref.flash_attention(*(t.requires_grad_(True) for t in (q, k, v)),
+                                                   causal=True, window=40), (q, k, v), do)
+    monkeypatch.setattr(ref, "flash_attention", lambda *a, **kw: pytest.fail("plain fwd"))
+    monkeypatch.setattr(ref, "flash_attention_bwd", lambda *a, **kw: pytest.fail("plain bwd"))
+    nf, nb = fa.launches.value, fa.bwd_launches.value
+    out = ops.flash_attention(q, k, v, causal=True, window=40)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (fa.launches.value - nf, fa.bwd_launches.value - nb) == (1, 1)
+    _assert_bwd_close(got, want, dtype)
+
+
+def test_serving_forward_is_unchanged_without_grad(cuda, monkeypatch):
+    monkeypatch.setattr(ops.FlashAttention, "apply", lambda *a: pytest.fail("autograd path"))
+    q, k, v, _ = _bwd_inputs(cuda, 1, 64, 4, 2, 128, torch.bfloat16)
+    nf, nb = fa.launches.value, fa.bwd_launches.value
+    ops.flash_attention(q, k, v)                       # no input requires grad
+    with torch.no_grad():
+        ops.flash_attention(*(t.requires_grad_(True) for t in (q, k, v)))
+    assert (fa.launches.value - nf, fa.bwd_launches.value - nb) == (2, 0)
+
+
+def test_mamba_scan_under_grad_raises_on_the_card(cuda):
+    x, dt, A, B, C, D = _scan_inputs(cuda, 1, 8, 128, 16, torch.float32, False)
+    n = ms.launches.value
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.mamba1_scan(x.requires_grad_(True), dt, A, B, C, D)
+    with torch.no_grad():
+        ops.mamba1_scan(x, dt, A, B, C, D)
+    assert ms.launches.value == n + 1
+
+
+@pytest.mark.parametrize("remat", [True, "dots", False])
+def test_tiny_train_step_cuda_matches_ref(cuda, remat):
+    """One loss and gradient of a 2-layer f32 model with backend "cuda"
+    against "ref" on the same weights and batch; each layer launches the
+    backward once, and the forward once more when it is recomputed (remat
+    True; "dots" recomputes attention too).  Held to 1e-4: the f32
+    forward runs split TF32 products and both passes sum in other orders
+    than the plain versions, across two layers and the loss."""
+    from repro_torch.configs.pipelines import tiny_lm
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as st
+    from repro_torch.train.data import TokenStream
+    cfg = tiny_lm("t", vocab=64)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    b = next(TokenStream(cfg, 2, 48, seed=1))
+    x, y = (torch.from_numpy(b[k]).cuda() for k in ("inputs", "labels"))
+    out = {}
+    for backend in ("ref", "cuda"):
+        ops.set_backend(backend)
+        try:
+            nf, nb = fa.launches.value, fa.bwd_launches.value
+            out[backend] = st.loss_and_grads(cfg, params, x, y, remat=remat)
+            torch.cuda.synchronize()
+            launched = (fa.launches.value - nf, fa.bwd_launches.value - nb)
+        finally:
+            ops.set_backend("auto")
+        fwd = (2 if remat else 1) * cfg.num_layers
+        assert launched == ((0, 0) if backend == "ref" else (fwd, cfg.num_layers))
+    tol = dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out["cuda"][0], out["ref"][0], **tol)
+    for g, w in zip(opt.leaves(out["cuda"][2]), opt.leaves(out["ref"][2])):
+        torch.testing.assert_close(g, w, **tol)
