@@ -9,7 +9,8 @@ Phases, each printing one JSON line with its wall time:
   2. build    — the four CUDA sources built from
                 ``src/repro_torch/kernels/csrc`` for sm_90a (one nvcc per
                 source, started together), with each kernel's registers and
-                spills from ``-Xptxas -v`` (a spill fails the run);
+                spills from ``-Xptxas -v`` (a spill, or ptxas serializing
+                a kernel's wgmma, fails the run);
   3. kernels  — each kernel held against its plain PyTorch version on
                 seeded inputs at the serving path's shapes and at full
                 width (flash cases name their route, wgmma or mma; paged
@@ -19,11 +20,15 @@ Phases, each printing one JSON line with its wall time:
                 with CUDA events fenced by a device-side sleep (``Timer``)
                 beside the plain version and one PyTorch library call (a
                 yardstick the port never uses); the sub-0.05 ms cases are
-                also read from the profiler's kernel events; the flash
-                backward against its plain FA2 equations (dq, dk, dv) at
-                InternLM2's training shape, the smoke configs' f32, a
-                window, HuBERT's non-causal hd 80 and a ragged S, timed
-                beside autograd of SDPA;
+                also read from the profiler's kernel events; the wgmma
+                forward at InternLM2's training shape with and without
+                lse (timed in turns, lse against the plain version's); the
+                flash backward (each case names its route, wgmma, mma or
+                simt; the wgmma route takes the forward's lse) against its
+                plain FA2 equations (dq, dk, dv) at InternLM2's training
+                shape, the smoke configs' f32, a window, HuBERT's
+                non-causal hd 80 and a ragged S, timed beside autograd of
+                SDPA and split by kernel by the profiler;
   4. qwen_omni — the Thinker -> Talker -> DiT-vocoder pipeline served
                 through the port's threaded Orchestrator: two greedy runs,
                 backend "cuda" and backend "ref", whose Thinker and Talker
@@ -68,11 +73,11 @@ Phases, each printing one JSON line with its wall time:
   7b. train_full_width — InternLM2-1.8B trained at its published width
                 and depth (bf16, batch 4 x 2048 tokens, full remat): one
                 step's loss, grad norm and per-leaf gradients with backend
-                "cuda" and "ref", each against an f32 run; 3 AdamW steps
+                "cuda" and "ref", each against an f32 run; 6 AdamW steps
                 (ms per step, tokens/s, share of the bf16 peak, peak
                 memory, forward and backward kernel launches per step)
                 and one profiled step (device busy share, device time by
-                kind of kernel); the same 3 steps through
+                kind of kernel); the same 6 steps through
                 ``launch/train.py``'s ``main``; tiny_lm trained 30
                 steps with falling loss; one step of each family's smoke
                 config "cuda" and "ref" against f32 (the SSM's CUDA scan
@@ -114,6 +119,9 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # counts three times the operations at the TF32 rate
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
+# the forward's lse (log2 units, magnitude ~10) against the plain
+# version's on the same bf16 inputs: both f32, summed in other orders
+LSE_TOL = 1e-4
 # logits of one full-width bf16 decode step, kernel vs plain attention:
 # the two sum in different orders in f32 and round to bf16 in each of the
 # 48 layers, so they are held to 5% of the logits' largest magnitude
@@ -402,27 +410,35 @@ def flash_case(torch, F, timer, name, *, B, sq, sk, nq, nkv, hd, dtype,
 
 
 # the backward's products per visible (query, key) pair and head_dim
-# column: the recomputed S, dV, dP, dQ and dK, 2 operations each; the lse
-# that the backward recomputes (the forward does not write it) adds one S
+# column: the recomputed S, dV, dP, dQ and dK, 2 operations each; the mma
+# and simt routes recompute lse too (their forward does not write it),
+# which adds one S
 BWD_PRODUCTS = 5
 
 
 def flash_bwd_case(torch, F, timer, name, *, B, S, nq, nkv, hd, dtype, causal=True,
-                   window=0, seed=0, profile=False):
+                   window=0, seed=0, profile=True):
     """The flash backward against its plain FA2 equations on the same
     inputs and forward output, timed beside the plain version and
-    autograd of SDPA's backward (a yardstick the port never uses)."""
+    autograd of SDPA's backward (a yardstick the port never uses).  On the
+    wgmma route it takes the forward's lse, as training does; the time
+    holds every kernel the call launches (pre- and post-pass, or the lse
+    kernel), and the profiler splits it by kernel."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     dt = getattr(torch, dtype)
+    route = fa.bwd_route(dt, hd)
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((B, S, nq, hd), generator=g, device="cuda").to(dt)
     k = torch.randn((B, S, nkv, hd), generator=g, device="cuda").to(dt)
     v = torch.randn((B, S, nkv, hd), generator=g, device="cuda").to(dt)
     do = torch.randn((B, S, nq, hd), generator=g, device="cuda").to(dt)
     kw = dict(causal=causal, window=window)
-    o = fa.flash_attention(q, k, v, **kw)
-    got = fa.flash_attention_bwd(q, k, v, o, do, **kw)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    if (lse is not None) != (route == "wgmma"):
+        fail(f"flash_bwd {name}: route {route} with a forward lse {lse is not None}")
+    bkw = dict(kw, lse=lse)
+    got = fa.flash_attention_bwd(q, k, v, o, do, **bkw)
     want = ref.flash_attention_bwd(q, k, v, o, do, **kw)
     torch.cuda.synchronize()
     errs = {n: compare(a, b, dtype) for n, a, b in zip(("dq", "dk", "dv"), got, want)}
@@ -437,8 +453,8 @@ def flash_bwd_case(torch, F, timer, name, *, B, S, nq, nkv, hd, dtype, causal=Tr
     def library():
         torch.autograd.grad(lib_out, (qt, kt, vt), lib_do, retain_graph=True)
 
-    ms = timer(lambda: fa.flash_attention_bwd(q, k, v, o, do, **kw))
-    by_kernel = (timer.profiled_by_kernel(lambda: fa.flash_attention_bwd(q, k, v, o, do, **kw))
+    ms = timer(lambda: fa.flash_attention_bwd(q, k, v, o, do, **bkw))
+    by_kernel = (timer.profiled_by_kernel(lambda: fa.flash_attention_bwd(q, k, v, o, do, **bkw))
                  if profile else None)
     plain_ms = timer(lambda: ref.flash_attention_bwd(q, k, v, o, do, **kw), iters=3, warmup=1)
     library_ms = timer(library)
@@ -447,10 +463,14 @@ def flash_bwd_case(torch, F, timer, name, *, B, S, nq, nkv, hd, dtype, causal=Tr
     # read q, k, v, o and dO once, write dq, dk and dv once
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
     flops = 2.0 * BWD_PRODUCTS * B * nq * hd * pairs
-    lse_flops = 2.0 * B * nq * hd * pairs
     peak = dtype if dtype == "bfloat16" else "float32"   # f32 runs on the CUDA cores
     b_ms, b_by = bound(nbytes, flops, peak)
-    return {"case": f"{name} [{'mma' if dtype == 'bfloat16' else 'simt'}]", "B": B, "S": S,
+    extra = {}
+    if route != "wgmma":
+        lse_flops = 2.0 * B * nq * hd * pairs
+        extra = {"flops_lse_recompute": lse_flops,
+                 "bound_ms_with_lse_recompute": bound(nbytes, flops + lse_flops, peak)[0]}
+    return {"case": f"{name} [{route}]", "route": route, "B": B, "S": S,
             "nq": nq, "nkv": nkv, "hd": hd, "dtype": dtype, "causal": causal, "window": window,
             "max_abs_err": max(e for e, _ in errs.values()),
             "max_abs_err_by_output": {n: e for n, (e, _) in errs.items()},
@@ -458,9 +478,44 @@ def flash_bwd_case(torch, F, timer, name, *, B, S, nq, nkv, hd, dtype, causal=Tr
             "profiler_ms_by_kernel": by_kernel, "plain_ms": plain_ms,
             "library_ms": library_ms, "library": "autograd of F.scaled_dot_product_attention",
             "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
-            "flops_lse_recompute": lse_flops,
-            "bound_ms_with_lse_recompute": bound(nbytes, flops + lse_flops, peak)[0],
-            "tflops_per_s": flops / ms / 1e9}
+            "tflops_per_s": flops / ms / 1e9, **extra}
+
+
+def flash_lse_case(torch, F, timer, name, *, B, S, nq, nkv, hd, causal=True, seed=0):
+    """The wgmma forward with and without lse, timed in turns in one run:
+    the output bit for bit the same, lse against the plain version's."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, S, nq, hd), generator=g, device="cuda").bfloat16()
+    k = torch.randn((B, S, nkv, hd), generator=g, device="cuda").bfloat16()
+    v = torch.randn((B, S, nkv, hd), generator=g, device="cuda").bfloat16()
+    out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    plain_out = fa.flash_attention(q, k, v, causal=causal)
+    want_out, want_lse = ref.flash_attention(q, k, v, causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    err, ok = compare(out, want_out, "bfloat16")
+    lse_err = float((lse - want_lse).abs().max())
+    same = bool(torch.equal(out, plain_out))
+    times = {"without_lse": [], "with_lse": []}
+    for key in ("without_lse", "with_lse", "with_lse", "without_lse"):
+        times[key].append(timer(lambda: fa.flash_attention(
+            q, k, v, causal=causal, return_lse=key == "with_lse")))
+    ms, ms_lse = (statistics.mean(times[k_]) for k_ in ("without_lse", "with_lse"))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                               enable_gqa=True))
+    pairs = B * (S * (S + 1) // 2 if causal else S * S)
+    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+    b_ms, b_by = bound(nbytes, 4.0 * nq * hd * pairs, "bfloat16")
+    return {"case": f"{name} [wgmma, lse]", "route": "wgmma", "B": B, "sq": S, "sk": S,
+            "nq": nq, "nkv": nkv, "hd": hd, "dtype": "bfloat16", "causal": causal, "window": 0,
+            "max_abs_err": err, "lse_max_abs_err": lse_err, "out_bitwise_without_lse": same,
+            "ok": ok and same and lse_err <= LSE_TOL, "ms": ms_lse, "ms_without_lse": ms,
+            "ms_turns": times, "lse_over_plain_forward": ms_lse / ms,
+            "plain_ms": timer(lambda: ref.flash_attention(q, k, v, causal=causal,
+                                                          return_lse=True), iters=3, warmup=1),
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
 # per (t, channel, state): dt * A, exp, * h, dt * B, * x, +, * C and the
@@ -610,6 +665,9 @@ def phase_kernels(torch, F):
     flash.append(flash_case(torch, F, timer, "GQA g 5 f32 window 128, 300 rows over 1000 keys",
                             B=2, sq=300, sk=1000, nq=40, nkv=8, hd=128, dtype="float32",
                             causal=True, window=128, seed=s + 5))
+    # InternLM2-1.8B's training forward, with the lse its backward takes
+    flash.append(flash_lse_case(torch, F, timer, "internlm2-1.8b train forward bf16 causal",
+                                B=4, S=2048, nq=16, nkv=8, hd=128, seed=s + 7))
     # the monolithic baseline's Thinker prefill: one request of 23 tokens
     flash.append(flash_case(torch, F, timer, "monolithic prefill f32 causal", B=1, sq=23,
                             sk=23, nq=4, nkv=2, hd=32, dtype="float32", causal=True,
@@ -1177,7 +1235,9 @@ def phase_full_width(torch):
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = "internlm2_1_8b"
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 3
+# six steps: the first warms the allocator up, and one slow step moves
+# the mean of the other five far less than it moved the mean of two
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 6
 # gradients of one bf16 step.  Kernels and plain attention round to bf16
 # at other places, and every later bf16 rounding of the model follows
 # from the earlier ones, so the two bf16 runs differ as two independent
@@ -1203,7 +1263,7 @@ def train_flops(cfg, batch: int, seq: int) -> dict:
     visible (query, key) pair, head and head_dim column for attention's
     two forward and four backward products), ``executed`` adds the blocks'
     recomputed forward (2 N T, 4 per pair) and the backward kernel's
-    recomputed S and lse (4 per pair)."""
+    recomputed S (2 per pair; it takes lse from the forward)."""
     d, hd = cfg.d_model, cfg.head_dim
     per_layer = (d * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd + cfg.num_heads * hd * d
                  + 3 * d * cfg.d_ff)
@@ -1211,7 +1271,7 @@ def train_flops(cfg, batch: int, seq: int) -> dict:
     tokens = batch * seq
     attn = batch * cfg.num_heads * hd * seq * (seq + 1) // 2 * cfg.num_layers   # causal
     model = 6.0 * (blocks + head) * tokens + 12.0 * attn
-    executed = model + 2.0 * blocks * tokens + 8.0 * attn
+    executed = model + 2.0 * blocks * tokens + 6.0 * attn
     return {"model": model, "executed": executed, "matmul_params": blocks + head}
 
 
@@ -1463,6 +1523,7 @@ def phase_train_full_width(torch):
             "layers": cfg.num_layers, "d_model": cfg.d_model, "params": n_params,
             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "init_seconds": init_s,
             "parity": parity, "steps": steps, "ms_per_step": steady_ms,
+            "ms_per_step_median": statistics.median(s_["ms"] for s_ in steps[1:]),
             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
             "flops_model": flops["model"], "flops_executed": flops["executed"],
             "bound_ms_bf16": 1e3 * flops["executed"] / PEAK_FLOPS["bfloat16"],
@@ -2257,7 +2318,7 @@ KERNEL_META = {
         "replaces": "src/repro/kernels/flash_attention.py:73"},
     "flash_attention_bwd": {
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        "replaces": "src/repro/kernels/ops.py:55"},
+        "replaces": "src/repro/kernels/ops.py:54"},
     "mamba1_scan": {
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan.py:58"},
@@ -2355,6 +2416,12 @@ def main() -> int:
     spills = [e for es in entries.values() for e in es if e["spill_bytes"]]
     if spills:
         fail(f"kernels spill registers: {spills}")
+    # ptxas serializing a kernel's wgmma (advisories C7520, C7512) costs
+    # most of the tensor cores' rate: it fails the run like a spill
+    serialized = [a for v in built.values() for a in ptxas_advisories(str(v["log"]))
+                  if "wgmma" in a["advisory"].lower() or "wgmma" in str(a["kernel"])]
+    if serialized:
+        fail(f"ptxas serializes wgmma: {serialized}")
 
     t = time.perf_counter()
     cases = phase_kernels(torch, F)

@@ -48,7 +48,10 @@
 //    per box; TMA leaves out rows past Sq.  Grid x is the query tile
 //    (longest first when causal), so the CTAs that share a kv head run
 //    together and K/V come from L2.  Shared memory: Q 32 KB + 3 stages
-//    of 64 KB at hd 128, 225 KB in all.
+//    of 64 KB at hd 128, 225 KB in all.  Under training the epilogue also
+//    writes each row's logsumexp (log2 units, m * scale * log2(e) +
+//    log2(l)) for the backward: a template flag (kLse), so the serving
+//    forward launches the instantiation without it, unchanged.
 //
 // 2. f32 at every head_dim, and bf16 at head_dim 32 and 80:
 //    flash_attention_mma_kernel, on the tensor cores through warp-level
@@ -87,7 +90,9 @@
 // for every row of the query tile AND every row of that tile has a
 // visible key elsewhere (a causal row at a negative position has none).
 //
-// Hazards met by the wgmma kernel, and what it does about them:
+// Hazards met by the wgmma kernel, and what it does about them (its TMA,
+// mbarrier, swizzle and wgmma helpers live in hopper.cuh, shared with the
+// backward):
 // - wgmma serialized by ptxas (advisory C7520, then C7512): every HGMMA
 //   was followed by a wait, at ~270 TFLOP/s.  Branches ptxas cannot
 //   prove uniform over a warp made it serialize: the warp index is
@@ -123,11 +128,9 @@
 //   the wgmma that reads it has completed, so the producer never
 //   overwrites a tile still in use.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the driver at run time
-
 #include <type_traits>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro {
 namespace {
@@ -135,10 +138,6 @@ namespace {
 // ---------------------------------------------------------------------------
 // Shared by both kernels
 // ---------------------------------------------------------------------------
-
-struct Strides {
-  int64_t b, s, h;  // elements; head_dim stride is 1
-};
 
 // First and one-past-last key this query tile reads: tiles masked for
 // every row are skipped only when every row has a visible key elsewhere.
@@ -167,8 +166,6 @@ constexpr int kTcThreads = kTcConsumers + 128;  // warpgroup 2 produces (one lan
 // registers per thread after setmaxnreg: 2 x 128 x 240 + 128 x 24 <= 65536
 constexpr int kConsumerRegs = 240;
 constexpr int kProducerRegs = 24;
-constexpr int kBox = 64;                    // bf16 columns per TMA box: one 128 B swizzle span
-constexpr int kBoxRowBytes = kBox * 2;      // 128
 constexpr int kTileBytes = kTcKeys * kBoxRowBytes;  // one (128-row, 64-column) box: 16 KB
 
 template <int HD>
@@ -189,172 +186,16 @@ constexpr size_t tc_smem_bytes() {
   return sizeof(TcSmem<HD>) + 1024;  // room to align the base to 1024 B
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the barrier's phase with the given parity has completed.  The
-// spin stays inside the asm block: a C++ loop around try_wait is control
-// flow that depends on each thread, and ptxas then serializes every wgmma
-// of the kernel (advisory C7520).
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// One TMA box of a 4-D map (coordinates innermost first) into shared
-// memory; completion is counted in bytes on `bar`.
-// One box from shared memory to the 4-D map (coordinates innermost first);
-// rows outside the tensor are not written.
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
-                                             int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor with the 128 B swizzle (layout type 1).
-// Byte offsets: K-major operands use only SBO (8 rows of 128 B); MN-major
-// ones use LBO between 64-column boxes and SBO between groups of 8 rows.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void named_bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// 2^x in one MUFU instruction (-inf gives 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed wgmma groups are in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the registers across
-// the asynchronous wgmma that owns them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define REPRO_WG_D8(o)                                                              \
-  "+f"(d[(o) + 0]), "+f"(d[(o) + 1]), "+f"(d[(o) + 2]), "+f"(d[(o) + 3]),          \
-      "+f"(d[(o) + 4]), "+f"(d[(o) + 5]), "+f"(d[(o) + 6]), "+f"(d[(o) + 7])
-
-// D (64 x 128, f32) = A (shared memory, K-major) * B (shared memory, K-major),
-// added to D when `accumulate` is non-zero
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t desc_a, uint64_t desc_b,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : REPRO_WG_D8(0), REPRO_WG_D8(8), REPRO_WG_D8(16), REPRO_WG_D8(24), REPRO_WG_D8(32),
-        REPRO_WG_D8(40), REPRO_WG_D8(48), REPRO_WG_D8(56)
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// D (64 x 128, f32) += A (registers: bf16x2 fragments) * B (shared memory, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : REPRO_WG_D8(0), REPRO_WG_D8(8), REPRO_WG_D8(16), REPRO_WG_D8(24), REPRO_WG_D8(32),
-        REPRO_WG_D8(40), REPRO_WG_D8(48), REPRO_WG_D8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// D (64 x 64, f32) += A (registers: bf16x2 fragments) * B (shared memory, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : REPRO_WG_D8(0), REPRO_WG_D8(8), REPRO_WG_D8(16), REPRO_WG_D8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-#undef REPRO_WG_D8
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int HD>
+// kLse: also write each row's logsumexp of the scaled scores, in log2
+// units (m * scale_log2 + log2(l)), to lse (B, nq, Sq) f32: the unit the
+// backward takes.  A template flag, not a runtime branch: serving launches
+// the instantiation without it, which is the kernel it was before.
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kTcThreads, 1) flash_attention_wgmma_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap o_map,
-    int sq, int sk, int nq, int nkv, int causal, int window, float scale_log2) {
+    float* __restrict__ lse, int sq, int sk, int nq, int nkv, int causal, int window,
+    float scale_log2) {
   // scale_log2 = softmax scale * log2(e): scores stay raw until exp2
   static_assert(HD == 64 || HD == 128, "the tensor-core kernel takes head_dim 64 or 128");
   constexpr int kBoxes = HD / kBox;
@@ -453,12 +294,8 @@ __global__ void __launch_bounds__(kTcThreads, 1) flash_attention_wgmma_kernel(
   auto issue_pv = [&](int st) {
 #pragma unroll
     for (int kk = 0; kk < kTcKeys / 16; ++kk) {
-      const uint64_t db = sw128_desc(smem_u32(sm.v[st][0]) + kk * 16 * kBoxRowBytes,
-                                     kTileBytes, 8 * kBoxRowBytes);
-      if constexpr (HD == 128)
-        wgmma_rs_n128(o, pa[kk], db);
-      else
-        wgmma_rs_n64(o, pa[kk], db);
+      wgmma_rs_hd<HD>(o, pa[kk], sw128_desc(smem_u32(sm.v[st][0]) + kk * 16 * kBoxRowBytes,
+                                             kTileBytes, 8 * kBoxRowBytes));
     }
   };
   // mask the scores of keys j0 .. j0 + 127, update the running max and sum,
@@ -569,6 +406,11 @@ __global__ void __launch_bounds__(kTcThreads, 1) flash_attention_wgmma_kernel(
     l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
     const float inv = 1.f / l[rr];
     const int row = wg * 64 + row_wg + 8 * rr;
+    if constexpr (kLse) {
+      const int i = tile * kTcRows + row;
+      if (col == 0 && i < sq)
+        lse[(static_cast<int64_t>(b) * nq + h) * sq + i] = m[rr] * scale_log2 + log2f(l[rr]);
+    }
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       const int chunk = (j % 8) ^ (row % 8);  // 16-byte chunk after the swizzle
@@ -578,7 +420,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) flash_attention_wgmma_kernel(
           __floats2bfloat162_rn(o[4 * j + 2 * rr] * inv, o[4 * j + 2 * rr + 1] * inv);
     }
   }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to TMA
+  fence_async_smem();  // visible to TMA
   named_bar_sync(3 + wg, 128);
   const int row0 = tile * kTcRows + wg * 64;
   if (threadIdx.x % 128 == 0 && row0 < sq) {
@@ -590,58 +432,10 @@ __global__ void __launch_bounds__(kTcThreads, 1) flash_attention_wgmma_kernel(
   }
 }
 
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, looked up once (thread-safe
-// static initialisation); null if the driver does not offer it.
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                            &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
-  return fn;
-}
-
-// Map of a bf16 (B, S, H, hd) tensor as dims (hd, H, S, B), boxes of
-// (64 columns, 1 head, `rows` rows, 1 batch) with the 128 B swizzle.
-int make_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads, int hd,
-             Strides st, int rows) {
-  const int64_t bytes[3] = {st.h * 2, st.s * 2, st.b * 2};
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return kBadTensorMap;
-  for (int64_t x : bytes)
-    if (x <= 0 || x % 16 != 0) return kBadTensorMap;
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return kBadTensorMap;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(bytes[0]),
-                                 static_cast<cuuint64_t>(bytes[1]),
-                                 static_cast<cuuint64_t>(bytes[2])};
-  const cuuint32_t box[4] = {kBox, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kBadTensorMap;
-}
-
 template <int HD>
-int launch_wgmma(const void* q, const void* k, const void* v, void* out, int batch, int sq,
-                 int sk, int nq, int nkv, Strides qs, Strides ks, Strides vs, int causal,
-                 int window, float scale, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int batch,
+                 int sq, int sk, int nq, int nkv, Strides qs, Strides ks, Strides vs,
+                 int causal, int window, float scale, cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map, o_map;
   const Strides os{static_cast<int64_t>(sq) * nq * HD, static_cast<int64_t>(nq) * HD, HD};
   int rc = make_map(&q_map, q, batch, sq, nq, HD, qs, kTcRows);
@@ -650,13 +444,19 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int bat
   if (rc == 0) rc = make_map(&o_map, out, batch, sq, nq, HD, os, 64);
   if (rc != 0) return rc;
   constexpr size_t smem = tc_smem_bytes<HD>();
-  auto kernel = flash_attention_wgmma_kernel<HD>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  auto plain = flash_attention_wgmma_kernel<HD, false>;
+  auto with_lse = flash_attention_wgmma_kernel<HD, true>;
+  static const cudaError_t attr[2] = {
+      cudaFuncSetAttribute(plain, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)),
+      cudaFuncSetAttribute(with_lse, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem))};
+  for (cudaError_t e : attr)
+    if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((sq + kTcRows - 1) / kTcRows, nq, batch);
   const float log2e = 1.4426950408889634f;
-  kernel<<<grid, kTcThreads, smem, stream>>>(q_map, k_map, v_map, o_map, sq, sk, nq, nkv,
+  auto kernel = lse ? with_lse : plain;
+  kernel<<<grid, kTcThreads, smem, stream>>>(q_map, k_map, v_map, o_map, lse, sq, sk, nq, nkv,
                                              causal, window, scale * log2e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -724,37 +524,6 @@ __device__ __forceinline__ void mma_tf32x3(float (&c)[4], const uint32_t (&a_hi)
   mma_tf32(c, a_lo, b0_hi, b1_hi);
   mma_tf32(c, a_hi, b0_lo, b1_lo);
   mma_tf32(c, a_hi, b0_hi, b1_hi);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices, transposed: lane l gives the row address of
-// matrix l / 8
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(row)));
-}
-
-// 16 bytes from global to shared memory; src_bytes 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 template <typename T>
@@ -1034,12 +803,6 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attention_mma_kernel(
   }
 }
 
-// whether every row a K or V tile copy reads starts on a 16-byte boundary
-bool rows_aligned16(const void* p, Strides st, int elt) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (st.b * elt) % 16 == 0 &&
-         (st.s * elt) % 16 == 0 && (st.h * elt) % 16 == 0;
-}
-
 template <typename T, int HD>
 int launch_mma(const void* q, const void* k, const void* v, void* out, int batch, int sq,
                int sk, int nq, int nkv, Strides qs, Strides ks, Strides vs, int causal,
@@ -1066,10 +829,12 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int batch
 // contiguous; out: contiguous (B, Sq, nq, hd) in `dtype`.  bf16 at head_dim
 // 64 and 128 runs the wgmma kernel (its base addresses and strides must be
 // multiples of 16 bytes); f32 at every head_dim and bf16 at 32 and 80 the
-// mma.sync kernel.  Returns 0, a cudaError_t, or a negative
-// repro::ArgError.
+// mma.sync kernel.  lse: null, or (the wgmma kernel only) a contiguous f32
+// (B, nq, Sq) that receives each row's logsumexp in log2 units.  Returns 0,
+// a cudaError_t, or a negative repro::ArgError.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int batch, int sq, int sk, int nq, int nkv, int hd,
+                                      void* lse, int batch, int sq, int sk, int nq, int nkv,
+                                      int hd,
                                       int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
                                       int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
                                       int64_t v_sh, int dtype, int causal, int window,
@@ -1081,6 +846,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const Strides ks{k_sb, k_ss, k_sh};
   const Strides vs{v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_out = static_cast<float*>(lse);
+  if (lse_out != nullptr && !(dtype == kBF16 && (hd == 64 || hd == 128))) return kBadShape;
   if (dtype == kF32) {
     switch (hd) {
       case 32:
@@ -1105,14 +872,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
       return launch_mma<__nv_bfloat16, 32>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs,
                                            causal, window, scale, s);
     case 64:
-      return launch_wgmma<64>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs, causal, window,
-                              scale, s);
+      return launch_wgmma<64>(q, k, v, out, lse_out, batch, sq, sk, nq, nkv, qs, ks, vs, causal,
+                              window, scale, s);
     case 80:
       return launch_mma<__nv_bfloat16, 80>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs,
                                            causal, window, scale, s);
     case 128:
-      return launch_wgmma<128>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs, causal, window,
-                               scale, s);
+      return launch_wgmma<128>(q, k, v, out, lse_out, batch, sq, sk, nq, nkv, qs, ks, vs,
+                               causal, window, scale, s);
     default:
       return kBadHeadDim;
   }

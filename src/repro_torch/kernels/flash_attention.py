@@ -26,12 +26,30 @@ a failed launch is an error, never a quiet switch to the other kernel or
 to the plain version.  On a CPU tensor it runs the plain version,
 ``ref.flash_attention``.
 
-``flash_attention_bwd`` is the gradient (FlashAttention-2's backward,
-recomputing the scores; its source's header gives the design): bf16 at
-every head_dim on ``mma.sync`` tensor cores, f32 on the CUDA cores in
-exact f32.  It takes Sq == Sk only (all a training forward calls) and
-raises otherwise; it has its own launch counter, and the same rule: on a
-CUDA tensor it launches or raises, on a CPU tensor it runs
+With ``return_lse=True`` the forward also returns each row's logsumexp
+of the scaled scores, f32 (B, nq, Sq) in log2 units (``ref.
+flash_attention``'s convention), for the backward: the wgmma route writes
+it from its epilogue (a second instantiation of the kernel; the serving
+path launches the one without), the mma route returns None.
+
+``flash_attention_bwd`` is the gradient; its source's header gives each
+route's design, chosen by ``bwd_route``:
+
+- ``"wgmma"``: bf16 at head_dim 64 and 128 (training's route).  One
+  wgmma kernel fed by TMA runs the five products per tile (FlashAttention-
+  3's backward), between a pre-pass (D, the dQ accumulator zeroed) and a
+  post-pass (dQ to bf16).  It takes the forward's lse; given none, it
+  computes lse first.  q, k, v and do pass through TMA (``tma_ok``: a
+  view that fails it is copied).  dQ is summed in f32 with atomics, so
+  its last bits vary from run to run.
+- ``"mma"``: bf16 at head_dim 32 and 80: FlashAttention-2's three
+  kernels on ``mma.sync`` tensor cores, lse recomputed.
+- ``"simt"``: f32: the same three passes on the CUDA cores in exact f32.
+
+The last two ignore a given lse (their forward writes none).  It takes
+Sq == Sk only (all a training forward calls) and raises otherwise; it
+has its own launch counter (one per call), and the same rule: on a CUDA
+tensor it launches or raises, on a CPU tensor it runs
 ``ref.flash_attention_bwd``.
 """
 from __future__ import annotations
@@ -57,6 +75,18 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
     return "mma"
 
 
+def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernels of ``csrc/flash_attention_bwd.cu`` a call takes."""
+    if dtype == torch.float32:
+        return "simt"
+    return route(dtype, head_dim)
+
+
+#: query rows per tile of the wgmma backward: lse, D and dQ's f32
+#: accumulator are kept in rows padded to a multiple of it
+BWD_ROWS = 64
+
+
 def tma_ok(t: torch.Tensor) -> bool:
     """Whether a (B, S, H, hd) tensor can be described to TMA as it is:
     head_dim contiguous, base address and the other strides multiples of
@@ -67,19 +97,30 @@ def tma_ok(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0 and all(s > 0 and s * es % 16 == 0 for s in t.stride()[:3])
 
 
+def _tma_views(*ts: torch.Tensor):
+    """Each tensor as it is if TMA can read it, else a contiguous copy
+    (which starts on the allocator's aligned base)."""
+    return tuple(t if tma_ok(t) else t.clone(memory_format=torch.contiguous_format)
+                 for t in ts)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0, return_lse: bool = False):
     """q: (B, Sq, nq, hd); k, v: (B, Sk, nkv, hd), all f32 or all bf16.
-    Returns a contiguous (B, Sq, nq, hd) in q.dtype."""
+    Returns a contiguous (B, Sq, nq, hd) in q.dtype; with ``return_lse``
+    the pair (out, lse), lse the rows' logsumexp (f32 (B, nq, Sq), log2
+    units) on the wgmma route and on the CPU, None on the mma route."""
     if not q.is_cuda:
-        return ref.flash_attention(q, k, v, causal=causal, window=window)
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=return_lse)
     _check("flash_attention", q, k, v)
     b, sq, nq, hd = q.shape
     sk, nkv = k.shape[1], k.shape[2]
+    lse = None
     if route(q.dtype, hd) == "wgmma":
-        # a copy is contiguous and starts on the allocator's aligned base
-        q, k, v = (t if tma_ok(t) else t.clone(memory_format=torch.contiguous_format)
-                   for t in (q, k, v))
+        q, k, v = _tma_views(q, k, v)
+        if return_lse:
+            lse = torch.empty((b, nq, sq), dtype=torch.float32, device=q.device)
     else:   # only head_dim has to be contiguous; the rest is read through strides
         q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty((b, sq, nq, hd), dtype=q.dtype, device=q.device)
@@ -88,12 +129,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             b, sq, sk, nq, nkv, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             _DTYPES[q.dtype], int(causal), int(window), float(hd ** -0.5), stream)
     build.check(rc, "flash_attention")
     launches.add()
-    return out
+    return (out, lse) if return_lse else out
 
 
 def _check(op: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -117,34 +159,58 @@ def _check(op: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-                        do: torch.Tensor, *, causal: bool = True, window: int = 0):
+                        do: torch.Tensor, *, causal: bool = True, window: int = 0,
+                        lse: torch.Tensor | None = None):
     """Gradient of ``flash_attention``: q, o (its output) and do (the
     output's gradient) (B, S, nq, hd); k, v (B, S, nkv, hd), all f32 or
-    all bf16.  Returns contiguous (dq, dk, dv) in q.dtype."""
+    all bf16; lse, optional, the forward's (f32 (B, nq, S), log2 units),
+    used on the wgmma route (``bwd_route``) and by the plain version, and
+    recomputed when None.  Returns contiguous (dq, dk, dv) in q.dtype."""
     if not q.is_cuda:
-        return ref.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+        return ref.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, lse=lse)
     _check("flash_attention_bwd", q, k, v, o, do)
     b, s, nq, hd = q.shape
     nkv = k.shape[2]
     if k.shape[1] != s:
         raise ValueError(f"flash_attention_bwd: {s} queries over {k.shape[1]} keys; "
                          f"the backward takes Sq == Sk only")
-    q, k, v, o, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, o, do))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    lse_pad = dq_acc = None
+    if bwd_route(q.dtype, hd) == "wgmma":
+        q, k, v, do = _tma_views(q, k, v, do)
+        o = o if o.stride(-1) == 1 else o.contiguous()
+        s_pad = -(-s // BWD_ROWS) * BWD_ROWS
+        if lse is not None:
+            if lse.shape != (b, nq, s) or lse.dtype != torch.float32 or lse.device != q.device:
+                raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} {lse.dtype} on "
+                                 f"{lse.device}; need f32 {(b, nq, s)} on {q.device}")
+            lse = lse.contiguous()
+        delta = torch.empty((b, nq, s_pad), **f32)
+        lse_pad = torch.empty_like(delta)
+        dq_acc = torch.empty((b, nq, s_pad, hd), **f32)
+    else:   # their forward writes no lse: it is recomputed
+        q, k, v, o, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, o, do))
+        delta = torch.empty((b, nq, s), **f32)
+        lse = None
+    lse_given = lse is not None
+    if not lse_given:
+        lse = torch.empty((b, nq, s), **f32)
     dq = torch.empty((b, s, nq, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, s, nkv, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    lse = torch.empty((b, nq, s), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
     lib = build.load("flash_attention_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            None if lse_pad is None else lse_pad.data_ptr(),
+            None if dq_acc is None else dq_acc.data_ptr(),
             b, s, nq, nkv, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             *do.stride()[:3],
-            _DTYPES[q.dtype], int(causal), int(window), float(hd ** -0.5), stream)
+            _DTYPES[q.dtype], int(causal), int(window), int(lse_given), float(hd ** -0.5),
+            stream)
     build.check(rc, "flash_attention_bwd")
     bwd_launches.add()
     return dq, dk, dv

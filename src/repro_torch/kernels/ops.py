@@ -12,11 +12,12 @@ Gradients.  The plain versions are differentiated by autograd.  On the
 CUDA path, ``flash_attention`` under grad (grad mode on and an input that
 requires grad) runs ``FlashAttention``, the counterpart of the JAX
 package's ``flash_attention_trainable`` custom VJP: the CUDA forward, and
-a CUDA backward that recomputes the scores from the saved q, k, v and
-output (no O(S^2) residual is kept).  Without grad the serving path is
-unchanged: the forward kernel alone.  ``mamba1_scan``'s kernel has no
-backward (nor has the JAX package's: its Pallas scan has no custom VJP),
-so its CUDA path raises under grad rather than run the plain version.
+a CUDA backward that recomputes the scores from the saved q, k, v,
+output and the rows' logsumexp (no O(S^2) residual is kept).  Without
+grad the serving path is unchanged: the forward kernel alone.
+``mamba1_scan``'s kernel has no backward (nor has the JAX package's: its
+Pallas scan has no custom VJP), so its CUDA path raises under grad
+rather than run the plain version.
 """
 from __future__ import annotations
 
@@ -64,24 +65,26 @@ def flash_attention(q, k, v, *, causal=True, window=0, backend=None):
 
 class FlashAttention(torch.autograd.Function):
     """Attention with the kernels' forward and backward: the port's
-    ``flash_attention_trainable``.  Saves q, k, v and the output; the
-    backward recomputes the scores.  On CPU tensors both run the plain
-    versions (the wrappers' rule), so the CPU tests reach it too."""
+    ``flash_attention_trainable``.  Saves q, k, v, the output and the
+    rows' logsumexp (the wgmma forward writes it; the mma route gives
+    None and its backward recomputes it); the backward recomputes the
+    scores.  On CPU tensors both run the plain versions (the wrappers'
+    rule), lse included, so the CPU tests reach it too."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
         from repro_torch.kernels import flash_attention as fa
-        o = fa.flash_attention(q, k, v, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         return o
 
     @staticmethod
     def backward(ctx, do):
         from repro_torch.kernels import flash_attention as fa
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, do, causal=ctx.causal,
-                                            window=ctx.window)
+                                            window=ctx.window, lse=lse)
         return dq, dk, dv, None, None
 
 

@@ -39,22 +39,34 @@ def _attend(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bkgst,btkh->bskgh", probs, v.float())
 
 
+_LOG2E = 1.4426950408889634  # log2(e): lse is kept in log2 units, as the kernels keep it
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None, return_lse: bool = False):
     """Full-sequence attention.
 
     q: (B, Sq, nq, hd); k, v: (B, Sk, nkv, hd); nq % nkv == 0.
     Query i sits at position i + Sk - Sq (ends aligned).  window > 0 =>
     key j visible to query position p iff p - window < j (plus causality
-    j <= p).
+    j <= p).  With ``return_lse`` returns (out, lse): lse (B, nq, Sq) f32
+    is each row's logsumexp of the scaled, masked scores in log2 units
+    (logsumexp / ln 2), the unit the CUDA kernels write and read.
     """
     b, sq, nq, hd = q.shape
     nkv, sk = k.shape[2], k.shape[1]
     scale = scale if scale is not None else hd ** -0.5
     qg = _group(q, nkv).float() * scale
-    out = _attend(qg, k, v, _mask(sq, sk, causal, window, q.device))
-    return out.reshape(b, sq, nq, hd).to(q.dtype)
+    mask = _mask(sq, sk, causal, window, q.device)
+    if not return_lse:
+        out = _attend(qg, k, v, mask)
+        return out.reshape(b, sq, nq, hd).to(q.dtype)
+    s = torch.where(mask, torch.einsum("bskgh,btkh->bkgst", qg, k.float()), _NEG_INF)
+    lse = torch.logsumexp(s, dim=-1)                              # (B,nkv,g,Sq)
+    out = torch.einsum("bkgst,btkh->bskgh", torch.exp(s - lse[..., None]), v.float())
+    return (out.reshape(b, sq, nq, hd).to(q.dtype),
+            (lse * _LOG2E).reshape(b, nq, sq))
 
 
 def _mask(sq: int, sk: int, causal: bool, window: int, device) -> torch.Tensor:
@@ -72,10 +84,12 @@ def _mask(sq: int, sk: int, causal: bool, window: int, device) -> torch.Tensor:
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
-                        window: int = 0, scale: float | None = None):
+                        window: int = 0, scale: float | None = None,
+                        lse: torch.Tensor | None = None):
     """Gradient of ``flash_attention`` written out as FlashAttention-2's
     backward equations in f32 (not autograd): recompute S = scale Q K^T
-    (masked to -2**30) and its row logsumexp, P = exp(S - lse),
+    (masked to -2**30) and, unless ``lse`` is given (the forward's, (B,
+    nq, Sq) f32 in log2 units), its row logsumexp; P = exp(S - lse),
     D = rowsum(dO * O), dV = P^T dO, dP = dO V^T, dS = P * (dP - D),
     dQ = scale dS K, dK = scale dS^T Q.  dK and dV sum over each group's
     query heads (GQA).
@@ -91,7 +105,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf, vf = k.float(), v.float()
     s = torch.einsum("bskgh,btkh->bkgst", qg * scale, kf)         # (B,nkv,g,Sq,Sk)
     s = torch.where(_mask(sq, sk, causal, window, q.device), s, _NEG_INF)
-    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    if lse is None:
+        lse_nat = torch.logsumexp(s, dim=-1, keepdim=True)
+    else:
+        lse_nat = lse.float().reshape(b, nkv, nq // nkv, sq, 1) / _LOG2E
+    p = torch.exp(s - lse_nat)
     d = (dog * _group(o, nkv).float()).sum(-1)                    # (B,Sq,nkv,g)
     dv = torch.einsum("bkgst,bskgh->btkh", p, dog)
     dp = torch.einsum("bskgh,btkh->bkgst", dog, vf)
@@ -99,6 +117,61 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.einsum("bkgst,btkh->bskgh", ds, kf) * scale
     dk = torch.einsum("bkgst,bskgh->btkh", ds, qg) * scale
     return dq.reshape(b, sq, nq, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, *,
+                              block_q: int = 64, block_k: int = 128, causal: bool = True,
+                              window: int = 0, scale: float | None = None):
+    """``flash_attention_bwd`` computed the way the wgmma CUDA kernel
+    tiles it (Sq == Sk).  For each tile of ``block_k`` keys and each kv
+    head: every query head of the group and every tile of ``block_q``
+    rows that sees a key of the tile (the kernel's range: from the tile
+    holding the first key when causal, up to the last row the window lets
+    see the last key).  Per (key tile, query tile): S^T = K Q^T, P^T =
+    exp2(S^T scale log2(e) - lse) set to 0 where hidden or past S (every
+    tile masked, where the kernel masks only those it does not see whole:
+    the same values), dP^T = V dO^T, dS^T = P^T (dP^T - D); P^T and dS^T
+    are rounded to the input type before they enter dV += P^T dO, dK +=
+    dS^T Q and dQ += dS K, which the kernel sums in f32 over key tiles.
+    ``lse`` is the forward's (B, nq, S) f32 in log2 units.  Used by the
+    tests, never by the training path.
+    """
+    b, s, nq, hd = q.shape
+    nkv = k.shape[2]
+    g = nq // nkv
+    scale = scale if scale is not None else hd ** -0.5
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    d = (dof * o.float()).sum(-1)                                 # (B,S,nq)
+    lse2 = lse.float()                                            # (B,nq,S)
+    dq = torch.zeros((b, s, nq, hd), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, s, nkv, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    rnd = (lambda t: t.to(q.dtype).float()) if q.dtype != torch.float32 else (lambda t: t)
+    n_qt = -(-s // block_q)
+    for c0 in range(0, s, block_k):
+        c1 = min(c0 + block_k, s)
+        t_begin = c0 // block_q if causal else 0
+        i_end = min(s, c1 - 1 + window) if window > 0 else s
+        t_end = min(n_qt, -(-i_end // block_q))
+        kt, vt = kf[:, c0:c1], vf[:, c0:c1]                      # (B,Tk,nkv,hd)
+        for hh in range(g):
+            heads = torch.arange(nkv, device=q.device) * g + hh  # this member of each group
+            for t in range(t_begin, t_end):
+                i0, i1 = t * block_q, min(t * block_q + block_q, s)
+                qt = qf[:, i0:i1, heads]                          # (B,Tq,nkv,hd)
+                dot = dof[:, i0:i1, heads]
+                st = torch.einsum("bjkh,bikh->bkji", kt, qt)      # (B,nkv,Tk,Tq)
+                lt = lse2[:, heads, i0:i1][:, :, None, :]         # (B,nkv,1,Tq)
+                vis = _mask(s, s, causal, window, q.device)[i0:i1, c0:c1].T  # (Tk,Tq)
+                p = torch.where(vis, torch.exp2(st * (scale * _LOG2E) - lt), 0.0)
+                dpt = torch.einsum("bjkh,bikh->bkji", vt, dot)
+                dst = p * (dpt - d[:, i0:i1, heads].permute(0, 2, 1)[:, :, None, :])
+                p, dst = rnd(p), rnd(dst)
+                dv[:, c0:c1] += torch.einsum("bkji,bikh->bjkh", p, dot)
+                dk[:, c0:c1] += torch.einsum("bkji,bikh->bjkh", dst, qt)
+                dq[:, i0:i1, heads] += torch.einsum("bkji,bjkh->bikh", dst, kt)
+    return ((dq * scale).to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype))
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:

@@ -484,8 +484,10 @@ def _assert_bwd_close(got, want, dtype):
     (1, 130, 4, 1, False, 33),     # a window without causality, GQA 4
     (2, 1, 4, 2, True, 0)])        # one row
 def test_flash_bwd_kernel_matches_plain(cuda, dtype, hd, b, s, nq, nkv, causal, window):
-    """bf16 on the mma.sync kernels, f32 on the CUDA-core ones, against the
-    plain FlashAttention-2 equations on the same inputs and output."""
+    """bf16 at head_dim 64 and 128 on the wgmma kernel (lse recomputed:
+    none is given), at 32 and 80 on the mma.sync kernels, f32 on the
+    CUDA-core ones, against the plain FlashAttention-2 equations on the
+    same inputs and output."""
     q, k, v, do = _bwd_inputs(cuda, b, s, nq, nkv, hd, dtype)
     o = ref.flash_attention(q, k, v, causal=causal, window=window)
     n = fa.bwd_launches.value
@@ -508,6 +510,85 @@ def test_flash_bwd_kernel_reads_strided_inputs(cuda, kind, dtype, hd):
     got = fa.flash_attention_bwd(q, k, v, o, do, causal=True, window=50)
     want = ref.flash_attention_bwd(q, k, v, o, do, causal=True, window=50)
     _assert_bwd_close(got, want, dtype)
+
+
+WGMMA_BWD_CASES = [
+    (2, 128, 8, 2, True, 0),       # causal, GQA 4, whole tiles
+    (1, 77, 4, 4, False, 0),       # non-causal, ragged S
+    (1, 200, 10, 2, True, 64),     # a window across tiles, GQA 5
+    (1, 130, 4, 1, False, 33),     # a window without causality
+    (2, 1, 4, 2, True, 0),         # one row
+    (1, 1000, 16, 8, True, 0),     # InternLM2's heads, S a multiple of neither tile
+]
+
+
+@pytest.mark.parametrize("hd", fa.WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("b,s,nq,nkv,causal,window", WGMMA_BWD_CASES)
+def test_flash_bwd_wgmma_takes_the_forward_lse(cuda, hd, b, s, nq, nkv, causal, window):
+    """The wgmma backward with the lse its forward wrote, as training runs
+    it: within the bf16 tolerance of the plain FA2 equations, and of the
+    same kernel recomputing lse."""
+    assert fa.bwd_route(torch.bfloat16, hd) == "wgmma"
+    q, k, v, do = _bwd_inputs(cuda, b, s, nq, nkv, hd, torch.bfloat16)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    n = fa.bwd_launches.value
+    got = fa.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, lse=lse)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches.value == n + 1
+    want = ref.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    _assert_bwd_close(got, want, torch.bfloat16)
+    recomputed = fa.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    _assert_bwd_close(got, recomputed, torch.bfloat16)
+
+
+@pytest.mark.parametrize("hd", fa.WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("b,sq,sk,nq,nkv,causal,window", [
+    (2, 128, 128, 8, 2, True, 0), (1, 77, 77, 4, 4, False, 0), (1, 200, 200, 10, 2, True, 64),
+    (1, 70, 200, 8, 1, False, 0), (4, 2048, 2048, 16, 8, True, 0)])
+def test_flash_forward_lse_matches_plain_and_leaves_out_unchanged(cuda, hd, b, sq, sk, nq, nkv,
+                                                                 causal, window):
+    """The wgmma forward's lse (log2 units) against the plain version's,
+    and its output bit for bit the same with and without lse."""
+    q = torch.randn((b, sq, nq, hd), generator=cuda, device="cuda").bfloat16()
+    k = torch.randn((b, sk, nkv, hd), generator=cuda, device="cuda").bfloat16()
+    v = torch.randn((b, sk, nkv, hd), generator=cuda, device="cuda").bfloat16()
+    n = fa.launches.value
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    plain_out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches.value == n + 2
+    assert lse.dtype == torch.float32 and lse.shape == (b, nq, sq) and lse.is_contiguous()
+    assert torch.equal(out, plain_out)
+    _, want = ref.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 64), (torch.bfloat16, 80)])
+def test_flash_forward_mma_route_gives_no_lse(cuda, dtype, hd):
+    q, k, v, _ = _bwd_inputs(cuda, 1, 64, 4, 2, hd, dtype)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    assert lse is None and torch.equal(out, fa.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("hd", fa.WGMMA_HEAD_DIMS)
+def test_flash_bwd_wgmma_two_calls_agree(cuda, hd):
+    """dQ is summed with f32 atomics in no fixed order: two calls agree to
+    the bf16 tolerance (dK and dV, summed in registers, bit for bit)."""
+    q, k, v, do = _bwd_inputs(cuda, 2, 512, 8, 2, hd, torch.bfloat16)
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    a = fa.flash_attention_bwd(q, k, v, o, do, causal=True, lse=lse)
+    b = fa.flash_attention_bwd(q, k, v, o, do, causal=True, lse=lse)
+    _assert_bwd_close(a, b, torch.bfloat16)
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+
+
+def test_flash_bwd_refuses_a_wrong_lse(cuda):
+    q, k, v, do = _bwd_inputs(cuda, 1, 64, 4, 2, 128, torch.bfloat16)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd(q, k, v, o, do, lse=lse[:, :2])
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd(q, k, v, o, do, lse=lse.double())
 
 
 def test_flash_bwd_takes_equal_lengths_only(cuda):
