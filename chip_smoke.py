@@ -21,14 +21,17 @@ Phases, each printing one JSON line with its wall time:
                 beside the plain version and one PyTorch library call (a
                 yardstick the port never uses); the sub-0.05 ms cases are
                 also read from the profiler's kernel events; the wgmma
-                forward at InternLM2's training shape with and without
-                lse (timed in turns, lse against the plain version's); the
-                flash backward (each case names its route, wgmma, mma or
-                simt; the wgmma route takes the forward's lse) against its
-                plain FA2 equations (dq, dk, dv) at InternLM2's training
-                shape, the smoke configs' f32, a window, HuBERT's
-                non-causal hd 80 and a ragged S, timed beside autograd of
-                SDPA and split by kernel by the profiler;
+                forward at InternLM2's, the mma forward at HuBERT-XLarge's
+                (bf16 and f32) and the smoke configs' (f32) training shapes,
+                with and without lse (timed in turns, lse against the
+                plain version's, the output bit for bit without it); the
+                flash backward (each case names its route, wgmma or mma,
+                and takes the forward's lse) against its plain FA2
+                equations (dq, dk, dv) at InternLM2's and HuBERT-XLarge's
+                training shapes, the smoke configs' in f32 and bf16 (small
+                grids the mma route splits), a window, Zamba2's shared
+                attention and ragged S, timed beside autograd of SDPA and
+                split by kernel by the profiler;
   4. qwen_omni — the Thinker -> Talker -> DiT-vocoder pipeline served
                 through the port's threaded Orchestrator: two greedy runs,
                 backend "cuda" and backend "ref", whose Thinker and Talker
@@ -70,15 +73,18 @@ Phases, each printing one JSON line with its wall time:
                 counted), then one whole-prompt prefill (the shortest
                 prompt: the plain Mamba2 scan launches per step) under the
                 profiler;
-  7b. train_full_width — InternLM2-1.8B trained at its published width
-                and depth (bf16, batch 4 x 2048 tokens, full remat): one
-                step's loss, grad norm and per-leaf gradients with backend
-                "cuda" and "ref", each against an f32 run; 6 AdamW steps
-                (ms per step, tokens/s, share of the bf16 peak, peak
+  7b. train_full_width — InternLM2-1.8B (bf16, batch 4 x 2048 tokens)
+                and HuBERT-XLarge (bf16 weights, batch 4 x 1000 f32
+                frames, which make its activations f32 as jnp promotes)
+                trained at their published width and depth, full remat:
+                one step's loss, grad norm and per-leaf gradients with
+                backend "cuda" and "ref", each against an f32 run; 4 AdamW
+                steps (ms per step, tokens/s, share of the bf16 peak, peak
                 memory, forward and backward kernel launches per step)
                 and one profiled step (device busy share, device time by
-                kind of kernel); the same 6 steps through
-                ``launch/train.py``'s ``main``; tiny_lm trained 30
+                kind of kernel, the flash backward's share); InternLM2's
+                4 steps through ``launch/train.py``'s ``main``; tiny_lm
+                trained 30
                 steps with falling loss; one step of each family's smoke
                 config "cuda" and "ref" against f32 (the SSM's CUDA scan
                 must refuse grad); a checkpoint round trip at full width
@@ -91,6 +97,11 @@ Phases, each printing one JSON line with its wall time:
                 with backend "cuda" against "ref" and three profiled
                 decode steps.
 Every JSON line is also written to ``chiprun_out/chip_smoke.jsonl``.
+With ``--against TREE`` (another commit's checkout, e.g. the parent
+unpacked with git archive) it runs none of the phases: it measures the
+flash backward's mma cases, the mma forward and HuBERT-XLarge's training
+step from TREE and from this tree in turns, one process a turn
+(``run_against``).
 Then the ``{"kernels": [...]}`` line (launch counts of the runs that use
 each kernel, each counted from 0) and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero before the last line.  Without a
@@ -410,9 +421,8 @@ def flash_case(torch, F, timer, name, *, B, sq, sk, nq, nkv, hd, dtype,
 
 
 # the backward's products per visible (query, key) pair and head_dim
-# column: the recomputed S, dV, dP, dQ and dK, 2 operations each; the mma
-# and simt routes recompute lse too (their forward does not write it),
-# which adds one S
+# column: the recomputed S, dV, dP, dQ and dK, 2 operations each (lse comes
+# from the forward on every route)
 BWD_PRODUCTS = 5
 
 
@@ -420,14 +430,16 @@ def flash_bwd_case(torch, F, timer, name, *, B, S, nq, nkv, hd, dtype, causal=Tr
                    window=0, seed=0, profile=True):
     """The flash backward against its plain FA2 equations on the same
     inputs and forward output, timed beside the plain version and
-    autograd of SDPA's backward (a yardstick the port never uses).  On the
-    wgmma route it takes the forward's lse, as training does; the time
-    holds every kernel the call launches (pre- and post-pass, or the lse
-    kernel), and the profiler splits it by kernel."""
+    autograd of SDPA's backward (a yardstick the port never uses).  It
+    takes the forward's lse on every route, as training does; the time
+    holds every kernel the call launches (pre-pass, main kernel,
+    post-pass), and the profiler splits it by kernel."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     dt = getattr(torch, dtype)
     route = fa.bwd_route(dt, hd)
+    plan = fa.bwd_plan(dt, B, S, nq, nkv, hd,
+                       torch.cuda.get_device_properties(0).multi_processor_count)
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((B, S, nq, hd), generator=g, device="cuda").to(dt)
     k = torch.randn((B, S, nkv, hd), generator=g, device="cuda").to(dt)
@@ -435,8 +447,8 @@ def flash_bwd_case(torch, F, timer, name, *, B, S, nq, nkv, hd, dtype, causal=Tr
     do = torch.randn((B, S, nq, hd), generator=g, device="cuda").to(dt)
     kw = dict(causal=causal, window=window)
     o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
-    if (lse is not None) != (route == "wgmma"):
-        fail(f"flash_bwd {name}: route {route} with a forward lse {lse is not None}")
+    if lse is None:
+        fail(f"flash_bwd {name}: the {route} forward gave no lse")
     bkw = dict(kw, lse=lse)
     got = fa.flash_attention_bwd(q, k, v, o, do, **bkw)
     want = ref.flash_attention_bwd(q, k, v, o, do, **kw)
@@ -463,14 +475,12 @@ def flash_bwd_case(torch, F, timer, name, *, B, S, nq, nkv, hd, dtype, causal=Tr
     # read q, k, v, o and dO once, write dq, dk and dv once
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
     flops = 2.0 * BWD_PRODUCTS * B * nq * hd * pairs
-    peak = dtype if dtype == "bfloat16" else "float32"   # f32 runs on the CUDA cores
-    b_ms, b_by = bound(nbytes, flops, peak)
+    # f32 runs as three TF32 products; the CUDA cores' f32 bound stands beside it
+    b_ms, b_by = bound(nbytes, flops, "tf32x3" if dtype == "float32" else dtype)
     extra = {}
-    if route != "wgmma":
-        lse_flops = 2.0 * B * nq * hd * pairs
-        extra = {"flops_lse_recompute": lse_flops,
-                 "bound_ms_with_lse_recompute": bound(nbytes, flops + lse_flops, peak)[0]}
-    return {"case": f"{name} [{route}]", "route": route, "B": B, "S": S,
+    if dtype == "float32":
+        extra["bound_ms_f32_cuda_cores"] = bound(nbytes, flops, "float32")[0]
+    return {"case": f"{name} [{route}]", "route": route, "splits": plan.splits, "B": B, "S": S,
             "nq": nq, "nkv": nkv, "hd": hd, "dtype": dtype, "causal": causal, "window": window,
             "max_abs_err": max(e for e, _ in errs.values()),
             "max_abs_err_by_output": {n: e for n, (e, _) in errs.items()},
@@ -481,21 +491,29 @@ def flash_bwd_case(torch, F, timer, name, *, B, S, nq, nkv, hd, dtype, causal=Tr
             "tflops_per_s": flops / ms / 1e9, **extra}
 
 
-def flash_lse_case(torch, F, timer, name, *, B, S, nq, nkv, hd, causal=True, seed=0):
-    """The wgmma forward with and without lse, timed in turns in one run:
-    the output bit for bit the same, lse against the plain version's."""
+def flash_lse_case(torch, F, timer, name, *, B, S, nq, nkv, hd, dtype="bfloat16",
+                   causal=True, seed=0):
+    """The forward with and without lse, timed in turns in one run: the
+    output bit for bit the same, lse against the plain version's (f32 on
+    the mma route: also against its split-TF32 arithmetic's)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
+    dt = getattr(torch, dtype)
+    route = fa.route(dt, hd)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((B, S, nq, hd), generator=g, device="cuda").bfloat16()
-    k = torch.randn((B, S, nkv, hd), generator=g, device="cuda").bfloat16()
-    v = torch.randn((B, S, nkv, hd), generator=g, device="cuda").bfloat16()
+    q = torch.randn((B, S, nq, hd), generator=g, device="cuda").to(dt)
+    k = torch.randn((B, S, nkv, hd), generator=g, device="cuda").to(dt)
+    v = torch.randn((B, S, nkv, hd), generator=g, device="cuda").to(dt)
     out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
     plain_out = fa.flash_attention(q, k, v, causal=causal)
     want_out, want_lse = ref.flash_attention(q, k, v, causal=causal, return_lse=True)
     torch.cuda.synchronize()
-    err, ok = compare(out, want_out, "bfloat16")
+    err, ok = compare(out, want_out, dtype)
     lse_err = float((lse - want_lse).abs().max())
+    extra = {}
+    if dtype == "float32":
+        _, x3_lse = ref.flash_attention_tf32x3(q, k, v, causal=causal, return_lse=True)
+        extra["lse_max_abs_err_vs_tf32x3_plain"] = float((lse - x3_lse).abs().max())
     same = bool(torch.equal(out, plain_out))
     times = {"without_lse": [], "with_lse": []}
     for key in ("without_lse", "with_lse", "with_lse", "without_lse"):
@@ -507,15 +525,18 @@ def flash_lse_case(torch, F, timer, name, *, B, S, nq, nkv, hd, causal=True, see
                                                                enable_gqa=True))
     pairs = B * (S * (S + 1) // 2 if causal else S * S)
     nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
-    b_ms, b_by = bound(nbytes, 4.0 * nq * hd * pairs, "bfloat16")
-    return {"case": f"{name} [wgmma, lse]", "route": "wgmma", "B": B, "sq": S, "sk": S,
-            "nq": nq, "nkv": nkv, "hd": hd, "dtype": "bfloat16", "causal": causal, "window": 0,
+    flops = 4.0 * nq * hd * pairs
+    b_ms, b_by = bound(nbytes, flops, "tf32x3" if dtype == "float32" else dtype)
+    if dtype == "float32":
+        extra["bound_ms_f32_cuda_cores"] = bound(nbytes, flops, "float32")[0]
+    return {"case": f"{name} [{route}, lse]", "route": route, "B": B, "sq": S, "sk": S,
+            "nq": nq, "nkv": nkv, "hd": hd, "dtype": dtype, "causal": causal, "window": 0,
             "max_abs_err": err, "lse_max_abs_err": lse_err, "out_bitwise_without_lse": same,
             "ok": ok and same and lse_err <= LSE_TOL, "ms": ms_lse, "ms_without_lse": ms,
             "ms_turns": times, "lse_over_plain_forward": ms_lse / ms,
             "plain_ms": timer(lambda: ref.flash_attention(q, k, v, causal=causal,
                                                           return_lse=True), iters=3, warmup=1),
-            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by, **extra}
 
 
 # per (t, channel, state): dt * A, exp, * h, dt * B, * x, +, * C and the
@@ -665,9 +686,17 @@ def phase_kernels(torch, F):
     flash.append(flash_case(torch, F, timer, "GQA g 5 f32 window 128, 300 rows over 1000 keys",
                             B=2, sq=300, sk=1000, nq=40, nkv=8, hd=128, dtype="float32",
                             causal=True, window=128, seed=s + 5))
-    # InternLM2-1.8B's training forward, with the lse its backward takes
+    # the training forwards, with the lse their backward takes: InternLM2-1.8B
+    # (wgmma), HuBERT-XLarge (mma, bf16, non-causal) and the smoke configs (mma, f32)
     flash.append(flash_lse_case(torch, F, timer, "internlm2-1.8b train forward bf16 causal",
                                 B=4, S=2048, nq=16, nkv=8, hd=128, seed=s + 7))
+    flash.append(flash_lse_case(torch, F, timer, "hubert-xlarge train forward bf16 non-causal",
+                                B=4, S=1000, nq=16, nkv=16, hd=80, causal=False, seed=s + 8))
+    flash.append(flash_lse_case(torch, F, timer, "hubert-xlarge train forward f32 non-causal",
+                                B=4, S=1000, nq=16, nkv=16, hd=80, dtype="float32",
+                                causal=False, seed=s + 10))
+    flash.append(flash_lse_case(torch, F, timer, "smoke train forward f32 causal", B=2, S=128,
+                                nq=8, nkv=4, hd=32, dtype="float32", seed=s + 9))
     # the monolithic baseline's Thinker prefill: one request of 23 tokens
     flash.append(flash_case(torch, F, timer, "monolithic prefill f32 causal", B=1, sq=23,
                             sk=23, nq=4, nkv=2, hd=32, dtype="float32", causal=True,
@@ -707,6 +736,19 @@ def phase_kernels(torch, F):
                        nkv=2, hd=80, dtype="float32", causal=False, seed=35),
         flash_bwd_case(torch, F, timer, "hd 64 bf16 window 100 non-causal", B=2, S=300, nq=8,
                        nkv=2, hd=64, dtype="bfloat16", causal=False, window=100, seed=36),
+        # the smoke configs' attention in bf16 (the families' bf16 steps)
+        flash_bwd_case(torch, F, timer, "smoke bf16 hd 32 causal GQA", B=2, S=128, nq=8,
+                       nkv=4, hd=32, dtype="bfloat16", seed=37),
+        # Zamba2-2.7B's shared attention at a 2048-token prompt
+        flash_bwd_case(torch, F, timer, "zamba2-2.7b bf16 causal hd 80", B=1, S=2048, nq=32,
+                       nkv=32, hd=80, dtype="bfloat16", seed=38),
+        # HuBERT-XLarge's training shape (phase train_full_width) in bf16, and
+        # in f32, the type its training step runs attention in: the f32
+        # frames promote every activation of the bf16 model to f32, as jnp does
+        flash_bwd_case(torch, F, timer, "hubert-xlarge train bf16 non-causal hd 80", B=4,
+                       S=1000, nq=16, nkv=16, hd=80, dtype="bfloat16", causal=False, seed=39),
+        flash_bwd_case(torch, F, timer, "hubert-xlarge train f32 non-causal hd 80", B=4,
+                       S=1000, nq=16, nkv=16, hd=80, dtype="float32", causal=False, seed=40),
     ]
     return {"paged_attention": paged, "flash_attention": flash, "flash_attention_bwd": bwd,
             "mamba1_scan": scan}
@@ -1235,9 +1277,12 @@ def phase_full_width(torch):
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = "internlm2_1_8b"
-# six steps: the first warms the allocator up, and one slow step moves
-# the mean of the other five far less than it moved the mean of two
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 6
+# four steps: the first warms the allocator up, the mean is over three
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
+# HuBERT-XLarge, the audio encoder: its non-causal hd-80 attention takes
+# the flash backward's mma route; 4 x 1000 frames of the seeded stream
+ENCODER_ARCH = "hubert_xlarge"
+ENCODER_BATCH, ENCODER_SEQ, ENCODER_STEPS = 4, 1000, 4
 # gradients of one bf16 step.  Kernels and plain attention round to bf16
 # at other places, and every later bf16 rounding of the model follows
 # from the earlier ones, so the two bf16 runs differ as two independent
@@ -1263,13 +1308,15 @@ def train_flops(cfg, batch: int, seq: int) -> dict:
     visible (query, key) pair, head and head_dim column for attention's
     two forward and four backward products), ``executed`` adds the blocks'
     recomputed forward (2 N T, 4 per pair) and the backward kernel's
-    recomputed S (2 per pair; it takes lse from the forward)."""
+    recomputed S (2 per pair; it takes lse from the forward).  Attention
+    is causal but in an encoder."""
     d, hd = cfg.d_model, cfg.head_dim
     per_layer = (d * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd + cfg.num_heads * hd * d
                  + 3 * d * cfg.d_ff)
     blocks, head = cfg.num_layers * per_layer, d * cfg.vocab_size
     tokens = batch * seq
-    attn = batch * cfg.num_heads * hd * seq * (seq + 1) // 2 * cfg.num_layers   # causal
+    pairs = seq * seq if cfg.is_encoder else seq * (seq + 1) // 2
+    attn = batch * cfg.num_heads * hd * pairs * cfg.num_layers
     model = 6.0 * (blocks + head) * tokens + 12.0 * attn
     executed = model + 2.0 * blocks * tokens + 6.0 * attn
     return {"model": model, "executed": executed, "matmul_params": blocks + head}
@@ -1372,10 +1419,111 @@ def run_train_launcher(torch, argv) -> dict:
             "flash_launches": fa.launches.value, "flash_bwd_launches": fa.bwd_launches.value}
 
 
-def phase_train_full_width(torch):
-    """InternLM2-1.8B at its published width and depth trained through the
+def _batch(torch, stream):
+    b = next(stream)
+    return (torch.from_numpy(b["inputs"]).cuda(), torch.from_numpy(b["labels"]).cuda())
+
+
+def train_arch_full_width(torch, arch, *, batch, seq, steps, parity=True):
+    """``arch`` at its published width and depth trained through the
     port's entry points (train/step.py, as launch/train.py drives it), on
-    seeded random weights and the synthetic TokenStream."""
+    seeded random weights and the synthetic TokenStream: with ``parity``
+    one step's gradients with backend "cuda" and "ref" each against f32
+    (``compare_grads``); then ``steps`` AdamW steps (the first warms up)
+    and one profiled step: ms per step, tokens/s, peak memory, flash
+    launches per step, device time by kind of kernel and the flash
+    backward's share of it.  Returns (result, config)."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as st
+    from repro_torch.train.data import TokenStream
+    cfg = get_config(arch)
+    _free(torch)
+    free, total = torch.cuda.mem_get_info()
+    # bf16 weights and grads, f32 moments, and room for the activations
+    need = cfg.param_count() * (2 + 2 + 8) + 16e9
+    if free < need:
+        fail(f"train {arch}: {free / 1e9:.1f} GB free, need {need / 1e9:.1f} GB")
+    t = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in opt.leaves(params))
+    stream = TokenStream(cfg, batch, seq, seed=0)
+    x, y = _batch(torch, stream)
+    init_s = time.perf_counter() - t
+
+    # (a) one step's loss and gradients, kernels against plain attention
+    par = None
+    if parity:
+        t = time.perf_counter()
+        par = compare_grads(torch, cfg, params, x, y, f"train {arch}")
+        par["seconds"] = time.perf_counter() - t
+        _free(torch)
+
+    # (b) AdamW steps with the kernels, then one under the profiler: the
+    # device's busy share and where its time goes
+    opt_cfg = opt.AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=steps)
+    state = opt.init_opt_state(params)
+    step_fn = st.make_train_step(cfg, opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs, fwd, bwd = [], 0, 0
+    for _ in range(steps):
+        x, y = _batch(torch, stream)
+        torch.cuda.synchronize()
+        fa.launches.reset()
+        fa.bwd_launches.reset()
+        t = time.perf_counter()
+        params, state, m = step_fn(params, state, x, y)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        fwd += fa.launches.value
+        bwd += fa.bwd_launches.value
+        runs.append({"ms": 1e3 * dt, "loss": float(m["loss"]), "grad_norm":
+                     float(m["grad_norm"]), "lr": float(m["lr"]),
+                     "flash_launches": fa.launches.value,
+                     "flash_bwd_launches": fa.bwd_launches.value})
+    peak = torch.cuda.max_memory_allocated()
+    px, py = _batch(torch, stream)
+    profile = device_profile(torch, lambda: step_fn(params, state, px, py), top_n=12)[1]
+    if not all(np.isfinite([s_["loss"], s_["grad_norm"]]).all() for s_ in runs):
+        fail(f"train {arch}: non-finite loss or grad norm {runs}")
+    per_step = [s_["flash_launches"] for s_ in runs], [s_["flash_bwd_launches"] for s_ in runs]
+    if set(per_step[0]) != {2 * cfg.num_layers} or set(per_step[1]) != {cfg.num_layers}:
+        fail(f"train {arch}: flash launches per step {per_step}, expected "
+             f"{2 * cfg.num_layers} forward and {cfg.num_layers} backward")
+    steady_ms = statistics.mean(s_["ms"] for s_ in runs[1:])
+    flops = train_flops(cfg, batch, seq)
+    step_s = steady_ms / 1e3
+    del state, m, params
+    _free(torch)
+    bwd_ms = profile["device_ms_by_category"].get("flash_attention_bwd", 0.0)
+    return {"arch": arch, "source": cfg.source, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+            "head_dim": cfg.head_dim, "params": n_params, "batch": batch, "seq": seq,
+            "init_seconds": init_s, "parity": par, "steps": runs, "ms_per_step": steady_ms,
+            "ms_per_step_median": statistics.median(s_["ms"] for s_ in runs[1:]),
+            "tokens_per_s": batch * seq / step_s,
+            "flops_model": flops["model"], "flops_executed": flops["executed"],
+            "bound_ms_bf16": 1e3 * flops["executed"] / PEAK_FLOPS["bfloat16"],
+            "share_of_bf16_peak_executed": flops["executed"] / step_s / PEAK_FLOPS["bfloat16"],
+            "share_of_bf16_peak_model": flops["model"] / step_s / PEAK_FLOPS["bfloat16"],
+            "peak_memory_bytes": peak, "free_bytes_before": free, "total_bytes": total,
+            "profiled_step": profile, "flash_bwd_device_ms": bwd_ms,
+            "flash_bwd_share_of_device_time": bwd_ms / profile["device_ms"],
+            "flash_launches_per_step": 2 * cfg.num_layers,
+            "flash_bwd_launches_per_step": cfg.num_layers,
+            "launches": {"flash_attention": fwd, "flash_attention_bwd": bwd}}, cfg
+
+
+def phase_train_full_width(torch):
+    """InternLM2-1.8B and HuBERT-XLarge at their published width and depth
+    trained through the port's entry points (``train_arch_full_width``),
+    InternLM2 also through the launcher; then tiny_lm, each family's smoke
+    step and a checkpoint round trip."""
     import numpy as np
 
     from repro_torch.configs.base import get_config
@@ -1387,69 +1535,16 @@ def phase_train_full_width(torch):
     from repro_torch.train import optimizer as opt
     from repro_torch.train import step as st
     from repro_torch.train.data import TokenStream
-    cfg = get_config(TRAIN_ARCH)
-    _free(torch)
-    free, total = torch.cuda.mem_get_info()
-    # bf16 weights and grads, f32 moments, and room for the activations
-    need = cfg.param_count() * (2 + 2 + 8) + 16e9
-    if free < need:
-        fail(f"train_full_width: {free / 1e9:.1f} GB free, need {need / 1e9:.1f} GB")
 
     def batch(stream):
-        b = next(stream)
-        return (torch.from_numpy(b["inputs"]).cuda(), torch.from_numpy(b["labels"]).cuda())
+        return _batch(torch, stream)
 
-    t = time.perf_counter()
-    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
-    n_params = sum(p.numel() for p in opt.leaves(params))
-    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
-    x, y = batch(stream)
-    init_s = time.perf_counter() - t
-
-    # (a) one step's loss and gradients, kernels against plain attention
-    t = time.perf_counter()
-    parity = compare_grads(torch, cfg, params, x, y, "train_full_width")
-    parity["seconds"] = time.perf_counter() - t
-    _free(torch)
-
-    # (b) AdamW steps with the kernels
+    main, cfg = train_arch_full_width(torch, TRAIN_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                      steps=TRAIN_STEPS)
+    encoder, _ = train_arch_full_width(torch, ENCODER_ARCH, batch=ENCODER_BATCH,
+                                       seq=ENCODER_SEQ, steps=ENCODER_STEPS)
     opt_cfg = opt.AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
-    state = opt.init_opt_state(params)
-    step_fn = st.make_train_step(cfg, opt_cfg)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    steps, fwd, bwd = [], 0, 0
-    for i in range(TRAIN_STEPS):
-        x, y = batch(stream)
-        torch.cuda.synchronize()
-        fa.launches.reset()
-        fa.bwd_launches.reset()
-        t = time.perf_counter()
-        params, state, m = step_fn(params, state, x, y)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        fwd += fa.launches.value
-        bwd += fa.bwd_launches.value
-        steps.append({"ms": 1e3 * dt, "loss": float(m["loss"]), "grad_norm":
-                      float(m["grad_norm"]), "lr": float(m["lr"]),
-                      "flash_launches": fa.launches.value,
-                      "flash_bwd_launches": fa.bwd_launches.value})
-    peak = torch.cuda.max_memory_allocated()
-    # one more step under the profiler: the device's busy share and where
-    # its time goes
-    px, py = batch(stream)
-    profile = device_profile(torch, lambda: step_fn(params, state, px, py), top_n=12)[1]
-    if not all(np.isfinite([s_["loss"], s_["grad_norm"]]).all() for s_ in steps):
-        fail(f"train_full_width: non-finite loss or grad norm {steps}")
-    per_step = [s_["flash_launches"] for s_ in steps], [s_["flash_bwd_launches"] for s_ in steps]
-    if set(per_step[0]) != {2 * cfg.num_layers} or set(per_step[1]) != {cfg.num_layers}:
-        fail(f"train_full_width: flash launches per step {per_step}, expected "
-             f"{2 * cfg.num_layers} forward and {cfg.num_layers} backward")
-    steady_ms = statistics.mean(s_["ms"] for s_ in steps[1:])
-    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
-    step_s = steady_ms / 1e3
-    del state, m, params
-    _free(torch)
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=1)
 
     # (b2) the same through the entry point a user calls: the launcher
     launcher = run_train_launcher(torch, ["--arch", TRAIN_ARCH, "--full-config", "--batch",
@@ -1519,22 +1614,9 @@ def phase_train_full_width(torch):
         fail("train_full_width: the checkpoint did not round-trip bit for bit")
     del cparams, cstate, lp, ls
     _free(torch)
-    return {"phase": "train_full_width", "arch": TRAIN_ARCH, "source": cfg.source,
-            "layers": cfg.num_layers, "d_model": cfg.d_model, "params": n_params,
-            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "init_seconds": init_s,
-            "parity": parity, "steps": steps, "ms_per_step": steady_ms,
-            "ms_per_step_median": statistics.median(s_["ms"] for s_ in steps[1:]),
-            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
-            "flops_model": flops["model"], "flops_executed": flops["executed"],
-            "bound_ms_bf16": 1e3 * flops["executed"] / PEAK_FLOPS["bfloat16"],
-            "share_of_bf16_peak_executed": flops["executed"] / step_s / PEAK_FLOPS["bfloat16"],
-            "share_of_bf16_peak_model": flops["model"] / step_s / PEAK_FLOPS["bfloat16"],
-            "peak_memory_bytes": peak, "free_bytes_before": free, "total_bytes": total,
-            "profiled_step": profile,
-            "flash_launches_per_step": 2 * cfg.num_layers,
-            "flash_bwd_launches_per_step": cfg.num_layers,
-            "launches": {"flash_attention": fwd, "flash_attention_bwd": bwd},
-            "launcher": launcher, "tiny_lm": tiny, "families": families,
+    launches = {k: main["launches"][k] + encoder["launches"][k] for k in main["launches"]}
+    return {"phase": "train_full_width", **main, "launches": launches,
+            "encoder": encoder, "launcher": launcher, "tiny_lm": tiny, "families": families,
             "checkpoint": {"layers": 2, "bytes": ck_bytes, "seconds": ck_s, "bitwise": same}}
 
 
@@ -1672,8 +1754,9 @@ class PdTaps:
     inject on the decode engine).  A step is read off the engine's own
     ``busy_time`` and ``steps``, as a spawned child reports them, and
     counts as a decode step when it ran no prefill chunk (with the CPU
-    time its thread spent in it); these taps add no device sync.  ``verify_hop`` keeps a device copy of each request's
-    prefill pages at extraction and holds the decode engine's pages
+    time its thread spent in it); these taps add no device sync.
+    ``verify_hop`` keeps a device copy of each request's prefill pages at
+    extraction and holds the decode engine's pages
     against it, bit for bit, right after injection (one sync and one
     compare per request)."""
 
@@ -2308,6 +2391,143 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
+# --against: this tree and another (a parent commit) on one card, in turns
+# ---------------------------------------------------------------------------
+
+# the backward cases of the routes the mma kernel took over (and the
+# wgmma route's training shape), and the mma forward's training shapes:
+# (name, shapes)
+AGAINST_BWD = (
+    ("internlm2-1.8b train bf16 causal", dict(B=4, S=2048, nq=16, nkv=8, hd=128,
+                                              dtype="bfloat16")),
+    ("smoke f32 hd 32 causal GQA", dict(B=2, S=128, nq=8, nkv=4, hd=32, dtype="float32")),
+    ("ragged S 77 f32 non-causal hd 80", dict(B=1, S=77, nq=4, nkv=2, hd=80,
+                                              dtype="float32", causal=False)),
+    ("smoke bf16 hd 32 causal GQA", dict(B=2, S=128, nq=8, nkv=4, hd=32, dtype="bfloat16")),
+    ("hubert-xlarge bf16 non-causal hd 80", dict(B=2, S=1000, nq=16, nkv=16, hd=80,
+                                                 dtype="bfloat16", causal=False)),
+    ("hubert-xlarge train bf16 non-causal hd 80", dict(B=4, S=1000, nq=16, nkv=16, hd=80,
+                                                       dtype="bfloat16", causal=False)),
+    ("hubert-xlarge train f32 non-causal hd 80", dict(B=4, S=1000, nq=16, nkv=16, hd=80,
+                                                      dtype="float32", causal=False)),
+    ("zamba2-2.7b bf16 causal hd 80", dict(B=1, S=2048, nq=32, nkv=32, hd=80,
+                                           dtype="bfloat16")),
+)
+AGAINST_FWD = (
+    ("hubert-xlarge forward bf16 non-causal", dict(B=4, S=1000, nq=16, nkv=16, hd=80,
+                                                   dtype="bfloat16", causal=False)),
+    ("hubert-xlarge forward f32 non-causal", dict(B=4, S=1000, nq=16, nkv=16, hd=80,
+                                                  dtype="float32", causal=False)),
+    ("smoke forward f32 causal", dict(B=2, S=128, nq=8, nkv=4, hd=32, dtype="float32")),
+)
+
+
+def turn_measurements(torch):
+    """One tree's side of ``--against``, through the wrappers both trees
+    have: each backward case (taking the forward's lse where the forward
+    gives one) timed and split by kernel, with its error against the plain
+    version; the mma forward without lse and with it (a digest of the
+    output without lse, to hold it bit for bit across trees); and
+    HuBERT-XLarge's training step (``train_arch_full_width`` without its
+    gradient check)."""
+    import hashlib
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    build.build(["flash_attention", "flash_attention_bwd"])
+    timer = Timer(torch)
+
+    def inputs(B, S, nq, nkv, hd, dtype, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        dt = getattr(torch, dtype)
+        return [torch.randn(shape, generator=g, device="cuda").to(dt) for shape in
+                ((B, S, nq, hd), (B, S, nkv, hd), (B, S, nkv, hd), (B, S, nq, hd))]
+
+    bwd = {}
+    for i, (name, c) in enumerate(AGAINST_BWD):
+        kw = dict(causal=c.get("causal", True))
+        q, k, v, do = inputs(c["B"], c["S"], c["nq"], c["nkv"], c["hd"], c["dtype"], 40 + i)
+        o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+
+        def call():
+            return fa.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+
+        got = call()
+        want = ref.flash_attention_bwd(q, k, v, o, do, **kw)
+        torch.cuda.synchronize()
+        errs = [compare(a, b, c["dtype"]) for a, b in zip(got, want)]
+        del got, want
+        bwd[name] = {"ms": timer(call), "profiler_ms_by_kernel": timer.profiled_by_kernel(call),
+                     "forward_lse": lse is not None, "max_abs_err": max(e for e, _ in errs),
+                     "ok": all(ok for _, ok in errs)}
+    fwd = {}
+    for i, (name, c) in enumerate(AGAINST_FWD):
+        kw = dict(causal=c.get("causal", True))
+        q, k, v, _ = inputs(c["B"], c["S"], c["nq"], c["nkv"], c["hd"], c["dtype"], 50 + i)
+        out = fa.flash_attention(q, k, v, **kw)
+        bits = out.view(torch.int16 if c["dtype"] == "bfloat16" else torch.int32)
+        fwd[name] = {
+            "ms_without_lse": timer(lambda: fa.flash_attention(q, k, v, **kw)),
+            "ms_with_lse": timer(lambda: fa.flash_attention(q, k, v, return_lse=True, **kw)),
+            "out_sha256": hashlib.sha256(bits.cpu().numpy().tobytes()).hexdigest()[:16]}
+    train, _ = train_arch_full_width(torch, ENCODER_ARCH, batch=ENCODER_BATCH,
+                                     seq=ENCODER_SEQ, steps=ENCODER_STEPS, parity=False)
+    keep = ("ms_per_step", "ms_per_step_median", "tokens_per_s", "peak_memory_bytes",
+            "flash_bwd_device_ms", "flash_bwd_share_of_device_time")
+    return {"bwd": bwd, "fwd": fwd,
+            "train": {**{k: train[k] for k in keep},
+                      "steps_ms": [s_["ms"] for s_ in train["steps"]],
+                      "device_ms": train["profiled_step"]["device_ms"],
+                      "device_ms_by_category": train["profiled_step"]["device_ms_by_category"]}}
+
+
+def run_against(other: str, smi: str) -> int:
+    """This tree and ``other`` (a checkout of another commit, e.g. the
+    parent unpacked with git archive) measured by ``turn_measurements`` in
+    turns, other, this, this, other, each turn in its own process with
+    that tree's package and kernels; both trees' kernels are built first.
+    Writes every turn to chiprun_out/chip_smoke_against.jsonl and prints
+    the means per tree."""
+    trees = {"other": os.path.abspath(other), "this": ROOT}
+    for tree in trees.values():
+        if not os.path.isdir(os.path.join(tree, "src", "repro_torch")):
+            print(f"chip_smoke: no port under {tree}", file=sys.stderr)
+            return 2
+    path = os.path.join(ROOT, "chiprun_out", "chip_smoke_against.jsonl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    turns = []
+    with open(path, "w") as log:
+        for label in ("other", "this", "this", "other"):
+            t = time.perf_counter()
+            out = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn",
+                                  os.path.join(trees[label], "src")],
+                                 capture_output=True, text=True)
+            if out.returncode != 0:
+                fail(f"--against: the {label} turn failed:\n{out.stderr[-4000:]}")
+            res = json.loads(out.stdout.strip().splitlines()[-1])
+            res.update(tree=label, path=trees[label], seconds=time.perf_counter() - t)
+            log.write(json.dumps(res) + "\n")
+            log.flush()
+            turns.append(res)
+    summary = {}
+    for label in trees:
+        mine = [r for r in turns if r["tree"] == label]
+        summary[label] = {
+            "bwd_ms": {n: statistics.mean(r["bwd"][n]["ms"] for r in mine) for n, _ in AGAINST_BWD},
+            "fwd_ms_without_lse": {n: statistics.mean(r["fwd"][n]["ms_without_lse"] for r in mine)
+                                   for n, _ in AGAINST_FWD},
+            "train_ms_per_step": [r["train"]["ms_per_step"] for r in mine],
+            "train_flash_bwd_device_ms": [r["train"]["flash_bwd_device_ms"] for r in mine]}
+    same_out = {n: len({r["fwd"][n]["out_sha256"] for r in turns}) == 1 for n, _ in AGAINST_FWD}
+    bad = [n for r in turns for n, c in r["bwd"].items() if not c["ok"]]
+    print(smi, flush=True)
+    print(json.dumps({"against": summary, "forward_out_bitwise_across_trees": same_out,
+                      "bwd_cases_out_of_tolerance": bad}), flush=True)
+    return 1 if bad else 0
+
+
+# ---------------------------------------------------------------------------
 
 KERNEL_META = {
     "paged_attention": {
@@ -2318,17 +2538,18 @@ KERNEL_META = {
         "replaces": "src/repro/kernels/flash_attention.py:73"},
     "flash_attention_bwd": {
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        "replaces": "src/repro/kernels/ops.py:54"},
+        "replaces": "src/repro/kernels/ops.py:55"},
     "mamba1_scan": {
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan.py:58"},
 }
 
 
-# a kernel's name and template arguments inside a mangled name: every
-# __global__ of the port is flash_attention_*_kernel, paged_attention_*_kernel
-# or mamba1_*_kernel
-KERNEL_NAME = re.compile(r"((?:flash_attention|paged_attention|mamba1)_[a-z_]*?kernel)(I.*?EE)?")
+# a kernel's name and template arguments inside a mangled name (ptxas) or
+# a demangled one (the profiler): every __global__ of the port is
+# flash_attention_*_kernel, paged_attention_*_kernel or mamba1_*_kernel
+KERNEL_NAME = re.compile(
+    r"((?:flash_attention|paged_attention|mamba1)_[a-z_]*?kernel)(I.*?EE|<[^>]*>)?")
 
 
 def kernel_name(text: str):
@@ -2371,32 +2592,42 @@ def library_of(name: str) -> str:
 
 
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--against", metavar="TREE",
+                        help="instead of the phases, measure the flash backward's mma cases, "
+                             "the mma forward and HuBERT-XLarge's training step from this "
+                             "tree and from TREE (another commit's checkout) in turns")
+    parser.add_argument("--turn", metavar="SRC", help=argparse.SUPPRESS)
+    args = parser.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
-        print(f"chip_smoke: the port (src/repro_torch) is not next to {__file__}",
-              file=sys.stderr)
+    src = args.turn or SRC
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print(f"chip_smoke: the port (src/repro_torch) is not under {src}", file=sys.stderr)
         return 2
-    sys.path.insert(0, SRC)
-    import torch.nn.functional as F
-    os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
-    _log.append(open(LOG_PATH, "w"))
-
-    from repro_torch.kernels import build
-
+    sys.path.insert(0, src)
     # the plain versions and the model's matmuls run in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.turn:
+        print(json.dumps(turn_measurements(torch)), flush=True)
+        return 0
+    import torch.nn.functional as F
+    os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+
+    from repro_torch.kernels import build
     t_start = time.perf_counter()
 
     t = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
+    if args.against:
+        return run_against(args.against, smi)
+    _log.append(open(LOG_PATH, "w"))
     print(smi, flush=True)
     cap = torch.cuda.get_device_capability(0)
     emit({"phase": "device", "nvidia_smi": smi, "capability": list(cap),

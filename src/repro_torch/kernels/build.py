@@ -37,7 +37,7 @@ ENTRY_POINTS = {
     "flash_attention": ("flash_attention_launch",
                         [_P] * 5 + [_I] * 6 + [_L] * 9 + [_I] * 3 + [_F, _P]),
     "flash_attention_bwd": ("flash_attention_bwd_launch",
-                            [_P] * 12 + [_I] * 5 + [_L] * 15 + [_I] * 4 + [_F, _P]),
+                            [_P] * 13 + [_I] * 5 + [_L] * 15 + [_I] * 4 + [_F, _P]),
     "mamba_scan": ("mamba1_scan_launch",
                    [_P] * 10 + [_I] * 5 + [_L] * 8 + [_I, _P]),
 }

@@ -84,7 +84,9 @@
 //    1) is P's A fragment (columns t, t + 4), and V is read at the same
 //    permuted rows, so P needs no shuffle and no trip through shared
 //    memory.  Per-element masks are applied only to the tiles that a
-//    warp's rows do not see whole.
+//    warp's rows do not see whole.  Under training the epilogue also
+//    writes each row's logsumexp (log2 units, m log2(e) + log2(l)) for the
+//    backward: a template flag (kLse), as in kernel 1.
 //
 // Both skip key tiles exactly: a tile is skipped only when it is masked
 // for every row of the query tile AND every row of that tile has a
@@ -494,38 +496,6 @@ constexpr size_t mma_smem_bytes() {
   return 4 * MmaTile<T>::kKeys * row + (std::is_same<T, float>::value ? kMmaRows * row : 0);
 }
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, both TF32 (rounded to nearest, ties away from zero)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a b in f32 through three TF32 products of the split operands, the
-// small ones first
-__device__ __forceinline__ void mma_tf32x3(float (&c)[4], const uint32_t (&a_hi)[4],
-                                           const uint32_t (&a_lo)[4], float b0, float b1) {
-  uint32_t b0_hi, b0_lo, b1_hi, b1_lo;
-  split_tf32(b0, b0_hi, b0_lo);
-  split_tf32(b1, b1_hi, b1_lo);
-  mma_tf32(c, a_lo, b0_hi, b1_hi);
-  mma_tf32(c, a_hi, b0_lo, b1_lo);
-  mma_tf32(c, a_hi, b0_hi, b1_hi);
-}
-
 template <typename T>
 __device__ __forceinline__ T zero_of() {
   return static_cast<T>(0.f);
@@ -564,11 +534,14 @@ __device__ __forceinline__ void load_kv_tile(T* k_dst, T* v_dst, const T* kb, co
   }
 }
 
-template <typename T, int HD>
+// kLse: also write each row's logsumexp of the scaled scores, in log2
+// units (m log2(e) + log2(l)), to lse (B, nq, Sq) f32, as the wgmma
+// kernel's kLse does; serving launches the instantiation without it.
+template <typename T, int HD, bool kLse>
 __global__ void __launch_bounds__(kMmaThreads) flash_attention_mma_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int sq, int sk, int nq, int nkv, Strides qs, Strides ks,
-    Strides vs, int causal, int window, float scale, int vec16) {
+    T* __restrict__ out, float* __restrict__ lse, int sq, int sk, int nq, int nkv, Strides qs,
+    Strides ks, Strides vs, int causal, int window, float scale, int vec16) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int BN = MmaTile<T>::kKeys;
   constexpr int LD = HD + MmaTile<T>::kPad;
@@ -788,6 +761,10 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attention_mma_kernel(
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     if (rows[r] >= sq) continue;
+    if constexpr (kLse) {
+      if (t4 == 0)
+        lse[(static_cast<int64_t>(b) * nq + h) * sq + rows[r]] = m[r] * kLog2e + log2f(l[r]);
+    }
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     T* op = out + ((static_cast<int64_t>(b) * sq + rows[r]) * nq + h) * HD + 2 * t4;
 #pragma unroll
@@ -804,20 +781,26 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attention_mma_kernel(
 }
 
 template <typename T, int HD>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int batch, int sq,
-               int sk, int nq, int nkv, Strides qs, Strides ks, Strides vs, int causal,
+int launch_mma(const void* q, const void* k, const void* v, void* out, float* lse, int batch,
+               int sq, int sk, int nq, int nkv, Strides qs, Strides ks, Strides vs, int causal,
                int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<T, HD>();
-  auto kernel = flash_attention_mma_kernel<T, HD>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  auto plain = flash_attention_mma_kernel<T, HD, false>;
+  auto with_lse = flash_attention_mma_kernel<T, HD, true>;
+  static const cudaError_t attr[2] = {
+      cudaFuncSetAttribute(plain, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)),
+      cudaFuncSetAttribute(with_lse, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem))};
+  for (cudaError_t e : attr)
+    if (e != cudaSuccess) return static_cast<int>(e);
   const int elt = static_cast<int>(sizeof(T));
   const int vec16 = rows_aligned16(k, ks, elt) && rows_aligned16(v, vs, elt);
   dim3 grid((sq + kMmaRows - 1) / kMmaRows, nq, batch);
+  auto kernel = lse ? with_lse : plain;
   kernel<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), sq, sk, nq, nkv, qs, ks, vs, causal, window, scale, vec16);
+      static_cast<T*>(out), lse, sq, sk, nq, nkv, qs, ks, vs, causal, window, scale, vec16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -829,9 +812,10 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int batch
 // contiguous; out: contiguous (B, Sq, nq, hd) in `dtype`.  bf16 at head_dim
 // 64 and 128 runs the wgmma kernel (its base addresses and strides must be
 // multiples of 16 bytes); f32 at every head_dim and bf16 at 32 and 80 the
-// mma.sync kernel.  lse: null, or (the wgmma kernel only) a contiguous f32
-// (B, nq, Sq) that receives each row's logsumexp in log2 units.  Returns 0,
-// a cudaError_t, or a negative repro::ArgError.
+// mma.sync kernel.  lse: null, or a contiguous f32 (B, nq, Sq) that
+// receives each row's logsumexp in log2 units (either kernel's kLse
+// instantiation).  Returns 0, a cudaError_t, or a negative
+// repro::ArgError.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       void* lse, int batch, int sq, int sk, int nq, int nkv,
                                       int hd,
@@ -847,21 +831,20 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const Strides vs{v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse_out = static_cast<float*>(lse);
-  if (lse_out != nullptr && !(dtype == kBF16 && (hd == 64 || hd == 128))) return kBadShape;
   if (dtype == kF32) {
     switch (hd) {
       case 32:
-        return launch_mma<float, 32>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs, causal,
-                                     window, scale, s);
+        return launch_mma<float, 32>(q, k, v, out, lse_out, batch, sq, sk, nq, nkv, qs,
+                                     ks, vs, causal, window, scale, s);
       case 64:
-        return launch_mma<float, 64>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs, causal,
-                                     window, scale, s);
+        return launch_mma<float, 64>(q, k, v, out, lse_out, batch, sq, sk, nq, nkv, qs,
+                                     ks, vs, causal, window, scale, s);
       case 80:  // Zamba2's shared attention
-        return launch_mma<float, 80>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs, causal,
-                                     window, scale, s);
+        return launch_mma<float, 80>(q, k, v, out, lse_out, batch, sq, sk, nq, nkv, qs,
+                                     ks, vs, causal, window, scale, s);
       case 128:
-        return launch_mma<float, 128>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs, causal,
-                                      window, scale, s);
+        return launch_mma<float, 128>(q, k, v, out, lse_out, batch, sq, sk, nq, nkv, qs,
+                                      ks, vs, causal, window, scale, s);
       default:
         return kBadHeadDim;
     }
@@ -869,14 +852,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (dtype != kBF16) return kBadDType;
   switch (hd) {
     case 32:
-      return launch_mma<__nv_bfloat16, 32>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs,
-                                           causal, window, scale, s);
+      return launch_mma<__nv_bfloat16, 32>(q, k, v, out, lse_out, batch, sq, sk, nq, nkv, qs,
+                                           ks, vs, causal, window, scale, s);
     case 64:
       return launch_wgmma<64>(q, k, v, out, lse_out, batch, sq, sk, nq, nkv, qs, ks, vs, causal,
                               window, scale, s);
     case 80:
-      return launch_mma<__nv_bfloat16, 80>(q, k, v, out, batch, sq, sk, nq, nkv, qs, ks, vs,
-                                           causal, window, scale, s);
+      return launch_mma<__nv_bfloat16, 80>(q, k, v, out, lse_out, batch, sq, sk, nq, nkv, qs,
+                                           ks, vs, causal, window, scale, s);
     case 128:
       return launch_wgmma<128>(q, k, v, out, lse_out, batch, sq, sk, nq, nkv, qs, ks, vs,
                                causal, window, scale, s);

@@ -14,8 +14,10 @@
 // dK and dV summed over each kv head's group of query heads.  Masked
 // scores have P = 0 exactly, as the plain version's -2**30 gives.  The
 // outputs are contiguous (B, S, nq|nkv, hd) tensors in the input type.
-// lse is kept in log2 units of the scaled scores (log2 of sum 2^(S
-// log2(e))), the unit the forward writes it in.
+// lse is the forward's, in log2 units of the scaled scores (log2 of sum
+// 2^(S log2(e))): both forward kernels write it (their kLse
+// instantiations), and the wrapper runs the forward for it when a caller
+// has none.  So the five products are all: nothing is recomputed but S.
 //
 // Bound: the arithmetic.  Five products of 2 * S * S * hd operations per
 // head (the recomputed S, dV, dP, dQ, dK; half of that when causal)
@@ -23,18 +25,19 @@
 // far above the card's ~295 operations per byte, so only the tensor cores
 // can approach the bound, and at the 989 TFLOP/s of bf16 only wgmma.
 //
-// Three routes, chosen by the wrapper (kernels/flash_attention.py:
-// bwd_route):
+// Two routes, chosen by the wrapper (kernels/flash_attention.py:
+// bwd_route), each three launches: flash_attention_bwd_pre_kernel (D =
+// rowsum(dO o) and lse into rows padded to a multiple of the query tile,
+// the f32 dQ accumulator zeroed), the main kernel, and a post-pass (dQ =
+// scale x accumulator, in the input type).  Both main kernels run one CTA
+// per key tile of one kv head, keys as the rows of their products, so dK
+// and dV stay in registers across the group's query heads and query
+// tiles; per query tile they form S^T, P^T from lse, dV, dP^T, dS^T and
+// dK, and add dQ_part = dS K into the accumulator with f32 atomics.
 //
-// 1. "wgmma", bf16 at head_dim 64 and 128 (training's route; FlashAttention-
-//    3's backward).  The forward writes lse (its kLse instantiation), so
-//    the five products are all: nothing is recomputed but S.  Three
-//    launches: flash_attention_bwd_pre_kernel (D = rowsum(dO o), lse into
-//    rows padded to a multiple of 64, the f32 dQ accumulator zeroed; when
-//    the caller has no lse, the mma route's lse kernel runs first),
-//    flash_attention_bwd_wgmma_kernel, and flash_attention_bwd_post_kernel
-//    (dQ = scale x accumulator, to bf16).  The main kernel: one CTA per
-//    (128-key tile, kv head, batch), 384 threads.  The grid runs in
+// 1. "wgmma", bf16 at head_dim 64 and 128 (FlashAttention-3's backward).
+//    flash_attention_bwd_wgmma_kernel: one CTA per (128-key tile, kv
+//    head, batch), 384 threads.  The grid runs in
 //    blocks of 8 (batch, kv head) pairs, so that the pairs in flight keep
 //    their slices of the accumulator in L2 (2 MB each at InternLM2's
 //    training shape), and inside a block by key tile first, so that the
@@ -79,35 +82,45 @@
 //    Shared memory at hd 128: K and V 32 KB each, Q and dO 2 x 16 KB
 //    each, dS^T 2 x 16 KB, lse and D 1 KB: 161 KB, one CTA an SM.
 //
-// 2. "mma", bf16 at head_dim 32 and 80: FA2's deterministic split into
-//    three kernels, none with atomics, on warp-level mma.sync m16n8k16
-//    with f32 accumulators:
-//    a. flash_attention_bwd_rows_kernel<HD, false>: one CTA per (64-row
-//       query tile, query head, batch), four warps of 16 rows.  Each warp
-//       keeps its Q rows as mma A fragments in registers, walks the key
-//       tiles (32 keys, double-buffered in shared memory by cp.async) and
-//       keeps the online row max and sum of the scaled scores: lse.  D
-//       comes from the rows of o and dO, one warp-wide dot product per
-//       row.
-//    b. flash_attention_bwd_kv_kernel<HD>: one CTA per (64-key tile, kv
-//       head, batch), each warp 16 keys.  K and V stay in shared memory;
-//       the CTA walks every query head of the group and every query tile
-//       of 32 rows that sees its keys (Q, dO, lse and D double-buffered).
-//       Per tile: S^T = K Q^T, P^T from lse, dV += P^T dO, dP^T = V dO^T,
-//       dS^T = P^T (dP^T - D), dK += dS^T Q.
-//    c. flash_attention_bwd_rows_kernel<HD, true>: the query tiles of (a)
-//       again, Q and dO as A fragments in registers, K and V tiles walked
-//       as in (a): S, P from lse, dP = dO V^T, dS, dQ += dS K.
-//    B operands laid as (n, k) rows are read as 32-bit pairs, those laid
-//    as (k, n) rows through ldmatrix.trans; the C fragment of one product
-//    is packed to bf16 as the A fragment of the next.  Shared rows are
-//    padded by 8 bf16 so that fragment reads and ldmatrix phases are free
-//    of bank conflicts.  lse is recomputed (the forward's mma route does
-//    not write it): a sixth product.
-//
-// 3. "simt", f32: the same three passes on the CUDA cores (a warp per
-//    query row or per key row, exact f32 fused multiply-adds), so it is
-//    held to the f32 tolerance; f32 trains only the small configurations.
+// 2. "mma", bf16 at head_dim 32 and 80 and f32 at every head_dim, on
+//    warp-level mma.sync: bf16 as m16n8k16 with f32 accumulators, f32 as
+//    three m16n8k8 TF32 products of split operands (hopper.cuh:
+//    mma_tf32x3, the forward's arithmetic; kernels/ref.py:
+//    flash_attention_bwd_tiled(tf32x3=True) is it in plain PyTorch, held
+//    to 2e-5 of the JAX oracle), so its bound is 3 x operations / 495
+//    TFLOP/s of dense TF32 (the CUDA cores give 67).
+//    flash_attention_bwd_mma_kernel<T, HD>: one CTA per (128-key tile, kv
+//    head, batch), eight warps of 16 keys; query tiles of 64 rows (bf16)
+//    or 32 (f32, whose registers and shared memory are twice as wide).
+//    K and V are loaded once (cp.async, rows padded by 8 bf16 or 4 f32);
+//    in bf16 each warp keeps its keys' K and V as A fragments in
+//    registers.  For every query head of the group and every query tile
+//    that sees the key tile, Q, dO, lse and D come through a two-stage
+//    cp.async ring, and each warp runs on its own 16 keys
+//      S^T = K Q^T (B fragments of Q by ldmatrix), P^T = exp2(S^T scale
+//        log2(e) - lse) (masks only on tiles not seen whole);
+//      dV += P^T dO: the C fragments of S^T are the A fragments (bf16
+//        packed in pairs; TF32 with each k8 step's queries permuted, so
+//        that C's columns 2t, 2t + 1 are A's columns t, t + 4), B = dO
+//        through ldmatrix.trans (or, TF32, two rows read at the same
+//        permuted queries);
+//      dP^T = V dO^T, dS^T = P^T (dP^T - D), dK += dS^T Q as dV;
+//      dS^T into shared memory (bf16 as its rounded A fragments).
+//    After one barrier all eight warps form the tile's dQ_part = dS K,
+//    each an m16 tile of query rows by its share of dQ's n8 columns, over
+//    the key tile's live keys: A = dS^T through ldmatrix.trans (TF32:
+//    dS^T rows read at permuted keys), B = K through ldmatrix.trans, and
+//    add it to the accumulator with float4 atomics in the fragment layout
+//    (n8 tile, m16 tile, lane, 4), 512 contiguous bytes a warp.  A second
+//    barrier a tile orders the reuse of dS^T and of the ring's stages.
+//    The grid is planned from the shapes (the wrapper's bwd_plan): CTAs
+//    run key tile slowest, so that causal tiles with the most query rows
+//    start first; where key tiles x kv heads x batch fill less than the
+//    card (the smoke configs: 8 CTAs on 132 SMs), each key tile's walk
+//    over (head, query tile) is split over `splits` CTAs, which add dK
+//    and dV through float4 atomics into an f32 buffer zeroed by the
+//    pre-pass and converted by the post-pass.
+//    Shared memory: bf16 hd 80 107 KB, f32 hd 128 217 KB; one CTA an SM.
 //
 // Hazards met by the wgmma kernel, and what it does about them:
 // - Registers: dK and dV take 128 of a thread's 240 at hd 128, S^T and
@@ -132,6 +145,8 @@
 
 #include <math.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace repro {
@@ -139,346 +154,327 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;    // four warps
-constexpr int kRows = 64;        // query rows (kernels 1, 3) or keys (kernel 2) per CTA
-constexpr int kKeyTile = 32;     // keys per shared tile of kernels 1 and 3
-constexpr int kQueryTile = 32;   // query rows per shared tile of kernel 2
-constexpr int kPad = 8;          // bf16 padding of a shared row
-constexpr int kSimtRows = kThreads / 32;  // rows per CTA of the f32 kernels: a warp each
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kPrePostThreads = 256;
 
 __device__ __forceinline__ bool visible(int i, int j, int causal, int window) {
   return (!causal || j <= i) && (window <= 0 || j > i - window);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Rows [r0, r0 + ROWS) of one head's (S, hd) slice (row stride ss) into a
+__device__ __forceinline__ void store2(float* p, float x0, float x1) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+}
+__device__ __forceinline__ void store2(bf16* p, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+}
+
+// Before the main kernel (both routes): D = rowsum(dO * o) and lse copied
+// into rows of s_pad (0 past s, so that a query tile's are one aligned
+// copy), the f32 dQ accumulator zeroed, and, when the mma route splits
+// its key tiles, the dK/dV accumulator (dkv_rows rows of HD floats after
+// the query rows).  One warp per row.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kPrePostThreads) flash_attention_bwd_pre_kernel(
+    const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse,
+    float* __restrict__ lse_pad, float* __restrict__ delta_pad, float* __restrict__ dq_acc,
+    float* __restrict__ dkv_acc, int64_t dkv_rows, int batch, int s, int s_pad, int nq,
+    Strides os, Strides dos) {
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * (kPrePostThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int64_t q_rows = static_cast<int64_t>(batch) * nq * s_pad;
+  if (row >= q_rows) {
+    if (row - q_rows < dkv_rows) {
+      float4* acc = reinterpret_cast<float4*>(dkv_acc + (row - q_rows) * HD);
+      for (int c = lane; c < HD / 4; c += 32) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+  const int i = static_cast<int>(row % s_pad);
+  const int64_t bh = row / s_pad;
+  const int h = static_cast<int>(bh % nq);
+  const int b = static_cast<int>(bh / nq);
+  float4* acc = reinterpret_cast<float4*>(dq_acc + row * HD);  // HD floats per padded row
+  for (int c = lane; c < HD / 4; c += 32) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float d = 0.f;
+  if (i < s) {  // the same for the whole warp
+    const T* orow = o + b * os.b + static_cast<int64_t>(i) * os.s + h * os.h;
+    const T* drow = dout + b * dos.b + static_cast<int64_t>(i) * dos.s + h * dos.h;
+    for (int c = lane; c < HD; c += 32) d = fmaf(to_f32(orow[c]), to_f32(drow[c]), d);
+    d = warp_sum(d);
+  }
+  if (lane == 0) {
+    delta_pad[row] = d;
+    lse_pad[row] = i < s ? lse[bh * s + i] : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The mma route: bf16 at head_dim 32 and 80 (mma.sync m16n8k16), f32 at
+// every head_dim (split TF32, m16n8k8)
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaWarps = 8;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kMmaKeys = 16 * kMmaWarps;  // keys per CTA: 16 per warp
+
+// Query rows per tile, and the padding of a shared row (elements): rows of
+// HD + 8 bf16 keep every ldmatrix phase free of bank conflicts, rows of
+// HD + 4 f32 every fragment read (4 g + t or 8 t + g banks), and both keep
+// each row on a 16-byte boundary for cp.async and ldmatrix.
+template <typename T>
+struct MmaBwd;
+template <>
+struct MmaBwd<bf16> {
+  static constexpr int kRows = 64;
+  static constexpr int kPad = 8;
+};
+template <>
+struct MmaBwd<float> {
+  static constexpr int kRows = 32;
+  static constexpr int kPad = 4;
+};
+
+template <typename T, int HD>
+__host__ __device__ constexpr size_t mma_smem_bytes() {
+  // K and V of the key tile, two stages of Q and dO, dS^T, two stages of
+  // lse and D
+  constexpr int BQ = MmaBwd<T>::kRows;
+  constexpr int LD = HD + MmaBwd<T>::kPad;
+  constexpr int LDS = BQ + MmaBwd<T>::kPad;
+  return (2 * kMmaKeys * LD + 4 * BQ * LD + kMmaKeys * LDS) * sizeof(T) +
+         4 * BQ * sizeof(float);
+}
+
+template <typename T>
+__device__ __forceinline__ T zero_of() {
+  return static_cast<T>(0.f);
+}
+
+// Rows [r0, r0 + ROWS) of one head's (S, HD) slice (row stride ss) into a
 // shared tile of rows padded to HD + kPad; rows past s are zeros.  With
 // every row on a 16-byte boundary (vec16) the copy is cp.async of 16
 // bytes, otherwise element by element.
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0, int s,
-                                          int64_t ss, int vec16) {
-  constexpr int LD = HD + kPad;
-  constexpr int kChunks = HD / 8;
+template <typename T, int HD, int ROWS>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int r0, int s, int64_t ss,
+                                          int vec16) {
+  constexpr int LD = HD + MmaBwd<T>::kPad;
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  constexpr int kChunks = HD / kVec;
   if (vec16) {
-    for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += kMmaThreads) {
       const int r = idx / kChunks;
-      const int c = (idx % kChunks) * 8;
+      const int c = (idx % kChunks) * kVec;
       const int i = r0 + r;
       const int64_t ii = i < s ? i : 0;  // a valid address even when nothing is read
       cp_async16(dst + r * LD + c, src + ii * ss + c, i < s ? 16 : 0);
     }
   } else {
-    for (int idx = threadIdx.x; idx < ROWS * HD; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < ROWS * HD; idx += kMmaThreads) {
       const int r = idx / HD;
       const int d = idx % HD;
       const int i = r0 + r;
-      dst[r * LD + d] = i < s ? src[static_cast<int64_t>(i) * ss + d] : __float2bfloat16(0.f);
+      dst[r * LD + d] = i < s ? src[static_cast<int64_t>(i) * ss + d] : zero_of<T>();
     }
   }
 }
 
-// A fragments (m16 x k16 per step) of a warp's 16 rows of one head, from
-// global memory: a0 (row g, cols 2 t4 + {0, 1}), a1 (row g + 8), a2 and a3
-// the same 8 columns on; rows past s are zeros
-template <int KQ>
-__device__ __forceinline__ void global_a_frags(uint32_t (&f)[KQ][4], const bf16* base,
-                                               int64_t ss, const int (&rows)[2], int s, int t4) {
-  const bf16* p[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) p[r] = base + static_cast<int64_t>(min(rows[r], s - 1)) * ss;
-#pragma unroll
-  for (int kq = 0; kq < KQ; ++kq) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = e & 1;
-      const bool live = rows[r] < s;
-      const int d = kq * 16 + 2 * t4 + (e >> 1) * 8;
-      f[kq][e] = pack_bf16x2(live ? to_f32(p[r][d]) : 0.f, live ? to_f32(p[r][d + 1]) : 0.f);
-    }
-  }
-}
-
-// The A fragment of rows row, row + 8 and columns col + {0, 1}, col + 8 +
-// {0, 1} of a shared tile with rows of LD elements
-template <int LD>
-__device__ __forceinline__ void smem_a_frag(uint32_t (&a)[4], const bf16* tile, int row,
-                                            int col) {
-  a[0] = ld32(tile + row * LD + col);
-  a[1] = ld32(tile + (row + 8) * LD + col);
-  a[2] = ld32(tile + row * LD + col + 8);
-  a[3] = ld32(tile + (row + 8) * LD + col + 8);
-}
-
-// ---------------------------------------------------------------------------
-// bf16: mma.sync kernels
-// ---------------------------------------------------------------------------
-
-// kDQ false: lse (log2 units) and D of each query row.  kDQ true: dQ.
-template <int HD, bool kDQ>
-__global__ void __launch_bounds__(kThreads) flash_attention_bwd_rows_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ o, const bf16* __restrict__ dout, float* __restrict__ lse,
-    float* __restrict__ delta, bf16* __restrict__ dq, int s, int nq, int nkv, Strides qs,
-    Strides ks, Strides vs, Strides os, Strides dos, int causal, int window, float scale_log2,
-    float scale, int vec16) {
-  constexpr int BN = kKeyTile;
-  constexpr int LD = HD + kPad;
-  constexpr int NT = BN / 8;   // n8 tiles of S and dP
-  constexpr int DT = HD / 8;   // n8 tiles of dQ
-  constexpr int KQ = HD / 16;  // k16 steps of Q K^T and dO V^T
-  extern __shared__ __align__(16) unsigned char bwd_smem[];
-  bf16* tiles = reinterpret_cast<bf16*>(bwd_smem);  // stage st: K at 2 st, V at 2 st + 1
-
-  // longest query tiles first when causal
-  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (nq / nkv);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+// acc (16 rows x BQ columns) += A B^T over head_dim, for S^T = K Q^T and
+// dP^T = V dO^T: A is the warp's 16 keys (bf16: A fragments held in
+// registers; f32: rows of a shared tile, split per step), B the query
+// tile's rows in shared memory.
+template <typename T, int HD, int BQ, int KF>
+__device__ __forceinline__ void keys_by_queries(float (&acc)[BQ / 8][4],
+                                                const uint32_t (&af)[KF][4],
+                                                const T* a_rows, const T* b_rows, int lane) {
+  constexpr int LD = HD + MmaBwd<T>::kPad;
   const int g = lane / 4;
   const int t4 = lane % 4;
-  const int row0 = tile * kRows + warp * 16;
-  const bool warp_live = row0 < s;
-  const int rows[2] = {row0 + g, row0 + g + 8};
-  const int64_t lrow = (static_cast<int64_t>(b) * nq + h) * s;  // this head's lse and D
-
-  uint32_t qf[KQ][4];
-  global_a_frags<KQ>(qf, q + b * qs.b + h * qs.h, qs.s, rows, s, t4);
-  uint32_t df[kDQ ? KQ : 1][4];
-  float lse_r[2] = {0.f, 0.f};
-  float d_r[2] = {0.f, 0.f};
-  if constexpr (kDQ) {
-    global_a_frags<KQ>(df, dout + b * dos.b + h * dos.h, dos.s, rows, s, t4);
+  if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (rows[r] < s) {
-        lse_r[r] = lse[lrow + rows[r]];
-        d_r[r] = delta[lrow + rows[r]];
+    for (int kq = 0; kq < HD / 8; ++kq) {
+      // a0: (g, t4), a1: (g + 8, t4), a2: (g, t4 + 4), a3: (g + 8, t4 + 4)
+      const float* ar = a_rows + g * LD + kq * 8 + t4;
+      uint32_t a_hi[4], a_lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split_tf32(ar[(e & 1) * 8 * LD + (e >> 1) * 4], a_hi[e], a_lo[e]);
+#pragma unroll
+      for (int nt = 0; nt < BQ / 8; ++nt) {
+        const float* br = b_rows + (nt * 8 + g) * LD + kq * 8 + t4;
+        mma_tf32x3(acc[nt], a_hi, a_lo, br[0], br[4]);
       }
     }
   } else {
-    // D = rowsum(dO * o), one warp-wide dot product per row
-    for (int rr = 0; rr < 16 && row0 + rr < s; ++rr) {
-      const int i = row0 + rr;
-      const bf16* orow = o + b * os.b + static_cast<int64_t>(i) * os.s + h * os.h;
-      const bf16* drow = dout + b * dos.b + static_cast<int64_t>(i) * dos.s + h * dos.h;
-      float acc = 0.f;
-      for (int d = lane; d < HD; d += 32) acc = fmaf(to_f32(orow[d]), to_f32(drow[d]), acc);
-      acc = warp_sum(acc);
-      if (lane == 0) delta[lrow + i] = acc;
-    }
-  }
-
-  float acc[kDQ ? DT : 1][4];
+    // B fragments of two n8 tiles per ldmatrix: matrices (rows 8nt, k 0-7),
+    // (rows 8nt, k 8-15), (rows 8nt + 8, k 0-7), (rows 8nt + 8, k 8-15)
+    const T* brow = b_rows + ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
 #pragma unroll
-  for (int dt = 0; dt < (kDQ ? DT : 1); ++dt)
+    for (int kq = 0; kq < HD / 16; ++kq) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
-
-  // the keys any row of this CTA sees
-  const int r_end = min(tile * kRows + kRows, s);
-  const int j_begin = window > 0 ? max(0, tile * kRows - window + 1) / BN * BN : 0;
-  const int j_end = causal ? r_end : s;
-  const int n_tiles = (j_end - j_begin + BN - 1) / BN;
-  const bf16* kb = k + b * ks.b + kvh * ks.h;
-  const bf16* vb = v + b * vs.b + kvh * vs.h;
-
-  if (n_tiles > 0) {
-    load_tile<HD, BN>(tiles, kb, j_begin, s, ks.s, vec16);
-    if constexpr (kDQ) load_tile<HD, BN>(tiles + BN * LD, vb, j_begin, s, vs.s, vec16);
-  }
-  cp_async_commit();
-  for (int it = 0; it < n_tiles; ++it) {
-    const int j0 = j_begin + it * BN;
-    if (it + 1 < n_tiles) {
-      bf16* next = tiles + ((it + 1) & 1) * 2 * BN * LD;
-      load_tile<HD, BN>(next, kb, j0 + BN, s, ks.s, vec16);
-      if constexpr (kDQ) load_tile<HD, BN>(next + BN * LD, vb, j0 + BN, s, vs.s, vec16);
-    }
-    cp_async_commit();
-    cp_async_wait_one();  // tile `it` has landed (the newest group may still fly)
-    __syncthreads();
-    const bf16* k_s = tiles + (it & 1) * 2 * BN * LD;
-    const bf16* v_s = k_s + BN * LD;
-
-    if (warp_live) {
-      // S = Q K^T: rows g, g + 8; keys j0 + 8 nt + 2 t4 + {0, 1}
-      float sc[NT][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
-#pragma unroll
-      for (int kq = 0; kq < KQ; ++kq) {
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const bf16* kr = k_s + (nt * 8 + g) * LD + kq * 16 + 2 * t4;
-          mma_bf16(sc[nt], qf[kq], ld32(kr), ld32(kr + 8));
-        }
-      }
-      // scaled to log2 units; masked keys take -2**30, keys past s -inf
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = j0 + nt * 8 + 2 * t4 + (e & 1);
-          sc[nt][e] = j >= s ? -__int_as_float(0x7f800000)
-                             : (visible(rows[e >> 1], j, causal, window) ? sc[nt][e] * scale_log2
-                                                                         : kNegInf);
-        }
-      }
-
-      if constexpr (!kDQ) {
-        // online max and sum; a row's values sit in the quad of lanes 4g..4g+3
-        float mt[2] = {m[0], m[1]};
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          mt[0] = fmaxf(mt[0], fmaxf(sc[nt][0], sc[nt][1]));
-          mt[1] = fmaxf(mt[1], fmaxf(sc[nt][2], sc[nt][3]));
-        }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-          mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-          l[r] *= exp2f(m[r] - mt[r]);
-          m[r] = mt[r];
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) l[e >> 1] += exp2f(sc[nt][e] - m[e >> 1]);
-      } else {
-        // dP = dO V^T
-        float dp[NT][4];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dp[nt][e] = 0.f;
-#pragma unroll
-        for (int kq = 0; kq < KQ; ++kq) {
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            const bf16* vr = v_s + (nt * 8 + g) * LD + kq * 16 + 2 * t4;
-            mma_bf16(dp[nt], df[kq], ld32(vr), ld32(vr + 8));
-          }
-        }
-        // dS = P (dP - D), in place of S
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            sc[nt][e] = exp2f(sc[nt][e] - lse_r[e >> 1]) * (dp[nt][e] - d_r[e >> 1]);
-        // dQ += dS K: two S tiles of 8 keys are one A fragment of 16 keys;
-        // K's B fragments through ldmatrix.trans, two n8 tiles per instruction
-#pragma unroll
-        for (int kk = 0; kk < NT / 2; ++kk) {
-          const uint32_t a[4] = {pack_bf16x2(sc[2 * kk][0], sc[2 * kk][1]),
-                                 pack_bf16x2(sc[2 * kk][2], sc[2 * kk][3]),
-                                 pack_bf16x2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                                 pack_bf16x2(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-          const bf16* krow = k_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                             (lane >> 4) * 8;
-#pragma unroll
-          for (int dt = 0; dt < DT; dt += 2) {
-            uint32_t bk[4];
-            ldmatrix_x4_trans(bk, krow + dt * 8);
-            mma_bf16(acc[dt], a, bk[0], bk[1]);
-            mma_bf16(acc[dt + 1], a, bk[2], bk[3]);
-          }
-        }
+      for (int nt = 0; nt < BQ / 8; nt += 2) {
+        uint32_t bb[4];
+        ldmatrix_x4(bb, brow + nt * 8 * LD + kq * 16);
+        mma_bf16(acc[nt], af[kq], bb[0], bb[1]);
+        mma_bf16(acc[nt + 1], af[kq], bb[2], bb[3]);
       }
     }
-    __syncthreads();  // the stage is free for the load two tiles on
   }
-  cp_async_wait_all();
+}
 
-  if (!warp_live) return;
-  if constexpr (!kDQ) {
+// acc (16 keys x HD) += C B over the query tile, for dV += P^T dO and
+// dK += dS^T Q: C (16 x BQ, f32 accumulators of the previous product) is
+// the A operand as it lies in registers; B (BQ x HD) is a shared tile.
+template <typename T, int HD, int BQ>
+__device__ __forceinline__ void keys_by_head_dim(float (&acc)[HD / 8][4],
+                                                 const float (&c)[BQ / 8][4], const T* b_rows,
+                                                 int lane) {
+  constexpr int LD = HD + MmaBwd<T>::kPad;
+  if constexpr (std::is_same<T, float>::value) {
+    // A column t4 is query 2 t4 of the k8 step, column t4 + 4 query 2 t4 + 1:
+    // C's (g, 2 t4), (g, 2 t4 + 1), (g + 8, ..) are a0, a2, a1, a3, and B's
+    // rows are read at the same queries
+    const int g = lane / 4;
+    const int t4 = lane % 4;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-      if (t4 == 0 && rows[r] < s) lse[lrow + rows[r]] = m[r] + log2f(l[r]);
+    for (int kk = 0; kk < BQ / 8; ++kk) {
+      uint32_t a_hi[4], a_lo[4];
+      split_tf32(c[kk][0], a_hi[0], a_lo[0]);
+      split_tf32(c[kk][2], a_hi[1], a_lo[1]);
+      split_tf32(c[kk][1], a_hi[2], a_lo[2]);
+      split_tf32(c[kk][3], a_hi[3], a_lo[3]);
+      const float* br = b_rows + (kk * 8 + 2 * t4) * LD + g;
+#pragma unroll
+      for (int dt = 0; dt < HD / 8; ++dt)
+        mma_tf32x3(acc[dt], a_hi, a_lo, br[dt * 8], br[LD + dt * 8]);
     }
   } else {
+    // two C tiles of 8 queries are one A fragment of 16, packed as they lie
+    // (FlashAttention-2's layout); B's fragments through ldmatrix.trans, two
+    // n8 tiles per instruction
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (rows[r] >= s) continue;
-      bf16* op = dq + ((static_cast<int64_t>(b) * s + rows[r]) * nq + h) * HD + 2 * t4;
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16x2(c[2 * kk][0], c[2 * kk][1]),
+                             pack_bf16x2(c[2 * kk][2], c[2 * kk][3]),
+                             pack_bf16x2(c[2 * kk + 1][0], c[2 * kk + 1][1]),
+                             pack_bf16x2(c[2 * kk + 1][2], c[2 * kk + 1][3])};
+      const T* brow = b_rows + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                      (lane >> 4) * 8;
 #pragma unroll
-      for (int dt = 0; dt < DT; ++dt)
-        *reinterpret_cast<__nv_bfloat162*>(op + dt * 8) =
-            __floats2bfloat162_rn(acc[dt][2 * r] * scale, acc[dt][2 * r + 1] * scale);
+      for (int dt = 0; dt < HD / 8; dt += 2) {
+        uint32_t bb[4];
+        ldmatrix_x4_trans(bb, brow + dt * 8);
+        mma_bf16(acc[dt], a, bb[0], bb[1]);
+        mma_bf16(acc[dt + 1], a, bb[2], bb[3]);
+      }
     }
   }
 }
 
-template <int HD>
-constexpr size_t rows_smem_bytes() {
-  return 4 * kKeyTile * (HD + kPad) * sizeof(bf16);
-}
+// dK and dV of a 128-key tile of one kv head over its share of the
+// (query head, query tile) walk, and each tile's dQ_part added into the
+// f32 accumulator.  Warp w owns keys c0 + 16 w .. c0 + 16 w + 15.  The
+// header gives the design.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kMmaThreads, 1) flash_attention_bwd_mma_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse_pad,
+    const float* __restrict__ delta_pad, float* __restrict__ dq_acc, T* __restrict__ dk,
+    T* __restrict__ dv, float* __restrict__ dkv_acc, int batch, int s, int nq, int nkv,
+    Strides qs, Strides ks, Strides vs, Strides dos, int causal, int window, float scale_log2,
+    float scale, int vec16, int splits) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int BQ = MmaBwd<T>::kRows;
+  constexpr int LD = HD + MmaBwd<T>::kPad;
+  constexpr int LDS = BQ + MmaBwd<T>::kPad;
+  constexpr int NQ = BQ / 8;   // n8 tiles of S^T and dP^T
+  constexpr int DT = HD / 8;   // n8 tiles of dK, dV and dQ
+  constexpr int MQ = BQ / 16;  // m16 tiles of dQ
+  constexpr int kDqCols = (DT + kMmaWarps / MQ - 1) / (kMmaWarps / MQ);  // dQ n8 tiles a warp
+  constexpr int kKeyStep = kF32 ? 8 : 16;
+  static_assert(kF32 || HD % 16 == 0, "bf16 head_dim must be a multiple of 16");
 
-template <int HD>
-constexpr size_t kv_smem_bytes() {
-  return (2 * kRows + 4 * kQueryTile) * (HD + kPad) * sizeof(bf16) +
-         4 * kQueryTile * sizeof(float);
-}
-
-// dK and dV of a 64-key tile of one kv head, over every query head of
-// its group.  One CTA an SM is all the bounds promise: with none, ptxas
-// caps this kernel at 128 registers (hd 64) or 96 (hd 32) and spills.
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_kv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int s,
-    int nq, int nkv, Strides qs, Strides ks, Strides vs, Strides dos, int causal, int window,
-    float scale_log2, float scale, int vec16) {
-  constexpr int BQ = kQueryTile;
-  constexpr int LD = HD + kPad;
-  constexpr int NT = BQ / 8;   // n8 tiles of S^T and dP^T
-  constexpr int DT = HD / 8;   // n8 tiles of dK and dV
-  constexpr int KQ = HD / 16;  // k16 steps of K Q^T and V dO^T
   extern __shared__ __align__(16) unsigned char bwd_smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(bwd_smem);
-  bf16* v_s = k_s + kRows * LD;
-  bf16* stages = v_s + kRows * LD;  // stage st: Q at 2 st, dO at 2 st + 1
-  float* stats = reinterpret_cast<float*>(stages + 4 * BQ * LD);  // st: lse, then D
+  T* k_s = reinterpret_cast<T*>(bwd_smem);
+  T* v_s = k_s + kMmaKeys * LD;
+  T* stages = v_s + kMmaKeys * LD;  // stage st: Q at 2 st, dO at 2 st + 1
+  T* ds_s = stages + 4 * BQ * LD;   // dS^T: a row of BQ queries per key
+  float* stats = reinterpret_cast<float*>(ds_s + kMmaKeys * LDS);  // stage st: lse, then D
 
-  const int c0 = blockIdx.x * kRows;  // ascending: causal key tiles see the most rows first
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+  // key tile slowest: causal tiles with the most query rows start first
+  const int pairs = batch * nkv;
+  const int sp = static_cast<int>(blockIdx.x % splits);
+  const int pair = static_cast<int>(blockIdx.x / splits % pairs);
+  const int kt = static_cast<int>(blockIdx.x / splits / pairs);
+  const int kvh = pair % nkv;
+  const int b = pair / nkv;
+  const int c0 = kt * kMmaKeys;
   const int group = nq / nkv;
+  const int n_qt = (s + BQ - 1) / BQ;
+  const int n_kt = (s + kMmaKeys - 1) / kMmaKeys;
+  // the query tiles that see any key of this tile, for each head of the
+  // group, and this CTA's share of the (head, query tile) walk
+  const int c_end = min(c0 + kMmaKeys, s);
+  const int t_begin = causal ? c0 / BQ : 0;
+  const int i_end = window > 0 ? min(s, c_end - 1 + window) : s;
+  const int per_head = (i_end + BQ - 1) / BQ - t_begin;
+  const int total = group * per_head;
+  const int per_split = (total + splits - 1) / splits;
+  const int it0 = min(total, sp * per_split);
+  const int it1 = min(total, it0 + per_split);
+  if (it0 >= it1) return;  // a split with nothing to add
+
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int t4 = lane % 4;
-  const int key0 = c0 + warp * 16;
-  const bool warp_live = key0 < s;
-  const int keys[2] = {key0 + g, key0 + g + 8};
+  const int kw0 = c0 + warp * 16;  // this warp's first key
+  const bool live = kw0 < s;
+  const int key_steps = (c_end - c0 + kKeyStep - 1) / kKeyStep;  // dQ's k steps
+  // dQ: this warp's m16 tile of query rows and its n8 columns
+  const int mq = warp % MQ;
+  const int dq0 = warp / MQ * kDqCols;
 
-  load_tile<HD, kRows>(k_s, k + b * ks.b + kvh * ks.h, c0, s, ks.s, vec16);
-  load_tile<HD, kRows>(v_s, v + b * vs.b + kvh * vs.h, c0, s, vs.s, vec16);
+  load_rows<T, HD, kMmaKeys>(k_s, k + b * ks.b + kvh * ks.h, c0, s, ks.s, vec16);
+  load_rows<T, HD, kMmaKeys>(v_s, v + b * vs.b + kvh * vs.h, c0, s, vs.s, vec16);
   cp_async_commit();
 
-  // the query rows that see any key of this tile, for each head of the group
-  const int c_end = min(c0 + kRows, s);
-  const int i_begin = causal ? c0 / BQ * BQ : 0;
-  const int i_end = window > 0 ? min(s, c_end - 1 + window) : s;
-  const int per_head = (i_end - i_begin + BQ - 1) / BQ;
-  const int total = group * per_head;
+  // Q, dO, lse and D of walk item `it` into stage `st`
+  auto stage_load = [&](int it, int st) {
+    const int h = kvh * group + it / per_head;
+    const int i0 = (t_begin + it % per_head) * BQ;
+    T* q_t = stages + st * 2 * BQ * LD;
+    load_rows<T, HD, BQ>(q_t, q + b * qs.b + h * qs.h, i0, s, qs.s, vec16);
+    load_rows<T, HD, BQ>(q_t + BQ * LD, dout + b * dos.b + h * dos.h, i0, s, dos.s, vec16);
+    constexpr int kStatChunks = BQ / 4;  // 16-byte pieces of lse (then D)
+    if (threadIdx.x < 2 * kStatChunks) {
+      const int which = threadIdx.x / kStatChunks;
+      const int c = (threadIdx.x % kStatChunks) * 4;
+      const int64_t row = (static_cast<int64_t>(b) * nq + h) * (n_qt * BQ) + i0 + c;
+      cp_async16(stats + (st * 2 + which) * BQ + c, (which ? delta_pad : lse_pad) + row, 16);
+    }
+  };
+  stage_load(it0, 0);
+  cp_async_commit();
+  cp_async_wait_one();  // K and V have landed
+  __syncthreads();
+
+  // bf16: this warp's K and V rows as A fragments (rows g, g + 8; columns
+  // 16 kq + 2 t4 + {0, 1} and + 8), for the whole walk
+  uint32_t kf[kF32 ? 1 : HD / 16][4], vf[kF32 ? 1 : HD / 16][4];
+  if constexpr (!kF32) {
+    const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int c = (lane >> 4) * 8;
+#pragma unroll
+    for (int kq = 0; kq < HD / 16; ++kq) {
+      ldmatrix_x4(kf[kq], k_s + r * LD + kq * 16 + c);
+      ldmatrix_x4(vf[kq], v_s + r * LD + kq * 16 + c);
+    }
+  }
 
   float dka[DT][4], dva[DT][4];
 #pragma unroll
@@ -489,134 +485,213 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_kv_kernel(
       dva[dt][e] = 0.f;
     }
 
-  for (int it = -1; it < total; ++it) {
-    if (it + 1 < total) {  // stage the next query tile: Q, dO, lse, D
-      const int nx = it + 1;
-      const int h = kvh * group + nx / per_head;
-      const int i0 = i_begin + (nx % per_head) * BQ;
-      bf16* qt = stages + (nx & 1) * 2 * BQ * LD;
-      load_tile<HD, BQ>(qt, q + b * qs.b + h * qs.h, i0, s, qs.s, vec16);
-      load_tile<HD, BQ>(qt + BQ * LD, dout + b * dos.b + h * dos.h, i0, s, dos.s, vec16);
-      float* st = stats + (nx & 1) * 2 * BQ;
-      const int64_t lrow = (static_cast<int64_t>(b) * nq + h) * s;
-      for (int r = threadIdx.x; r < BQ; r += kThreads) {
-        const int i = i0 + r;
-        st[r] = i < s ? lse[lrow + i] : 0.f;
-        st[BQ + r] = i < s ? delta[lrow + i] : 0.f;
-      }
-    }
+  for (int it = it0; it < it1; ++it) {
+    const int st = (it - it0) & 1;
+    if (it + 1 < it1) stage_load(it + 1, st ^ 1);
     cp_async_commit();
-    if (it < 0) continue;
-    cp_async_wait_one();  // tile `it` has landed (the newest group may still fly)
+    cp_async_wait_one();  // item `it` has landed (the newest group may still fly)
     __syncthreads();
-    const int i0 = i_begin + (it % per_head) * BQ;
-    const bf16* q_t = stages + (it & 1) * 2 * BQ * LD;
-    const bf16* do_t = q_t + BQ * LD;
-    const float* lse_t = stats + (it & 1) * 2 * BQ;
+    const int h = kvh * group + it / per_head;
+    const int qt = t_begin + it % per_head;
+    const int i0 = qt * BQ;
+    const T* q_t = stages + st * 2 * BQ * LD;
+    const T* do_t = q_t + BQ * LD;
+    const float* lse_t = stats + st * 2 * BQ;
     const float* d_t = lse_t + BQ;
 
-    if (warp_live) {
-      // S^T = K Q^T: keys g, g + 8 of the warp; queries i0 + 8 nt + 2 t4 + {0, 1}
-      float st[NT][4];
+    if (live) {
+      // S^T = K Q^T: keys g, g + 8 of the warp; queries 8 nt + 2 t4 + {0, 1}
+      float sa[NQ][4];
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+      for (int nt = 0; nt < NQ; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) st[nt][e] = 0.f;
+        for (int e = 0; e < 4; ++e) sa[nt][e] = 0.f;
+      keys_by_queries<T, HD, BQ>(sa, kf, k_s + warp * 16 * LD, q_t, lane);
+      // P^T, 0 where hidden or past s (checked only where some pair of
+      // the tile may be)
+      const bool edge = i0 + BQ > s || kw0 + 16 > s || (causal && kw0 + 15 > i0) ||
+                        (window > 0 && kw0 <= i0 + BQ - 1 - window);
 #pragma unroll
-      for (int kq = 0; kq < KQ; ++kq) {
-        uint32_t a[4];
-        smem_a_frag<LD>(a, k_s, warp * 16 + g, kq * 16 + 2 * t4);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const bf16* qr = q_t + (nt * 8 + g) * LD + kq * 16 + 2 * t4;
-          mma_bf16(st[nt], a, ld32(qr), ld32(qr + 8));
-        }
-      }
-      // P^T, 0 where masked and past s
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
+      for (int nt = 0; nt < NQ; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int c = nt * 8 + 2 * t4 + (e & 1);
-          const int i = i0 + c;
-          const int j = keys[e >> 1];
-          st[nt][e] = (i < s && j < s && visible(i, j, causal, window))
-                          ? exp2f(st[nt][e] * scale_log2 - lse_t[c])
-                          : 0.f;
+          const int qc = nt * 8 + 2 * t4 + (e & 1);
+          const float x = fmaf(sa[nt][e], scale_log2, -lse_t[qc]);
+          float p = kF32 ? exp2f(x) : fast_exp2(x);
+          if (edge) {
+            const int key = kw0 + g + 8 * (e >> 1);
+            const int i = i0 + qc;
+            p = (key < s && i < s && visible(i, key, causal, window)) ? p : 0.f;
+          }
+          sa[nt][e] = p;
         }
       }
-      // dV += P^T dO: two tiles of 8 queries are one A fragment of 16
+      keys_by_head_dim<T, HD, BQ>(dva, sa, do_t, lane);  // dV += P^T dO
+      // dP^T = V dO^T, then dS^T = P^T (dP^T - D) in its place
+      float dsa[NQ][4];
 #pragma unroll
-      for (int kk = 0; kk < NT / 2; ++kk) {
-        const uint32_t a[4] = {pack_bf16x2(st[2 * kk][0], st[2 * kk][1]),
-                               pack_bf16x2(st[2 * kk][2], st[2 * kk][3]),
-                               pack_bf16x2(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-                               pack_bf16x2(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-        const bf16* drow =
-            do_t + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+      for (int nt = 0; nt < NQ; ++nt)
 #pragma unroll
-        for (int dt = 0; dt < DT; dt += 2) {
-          uint32_t bb[4];
-          ldmatrix_x4_trans(bb, drow + dt * 8);
-          mma_bf16(dva[dt], a, bb[0], bb[1]);
-          mma_bf16(dva[dt + 1], a, bb[2], bb[3]);
-        }
-      }
-      // dP^T = V dO^T
-      float dpt[NT][4];
+        for (int e = 0; e < 4; ++e) dsa[nt][e] = 0.f;
+      keys_by_queries<T, HD, BQ>(dsa, vf, v_s + warp * 16 * LD, do_t, lane);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+      for (int nt = 0; nt < NQ; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dpt[nt][e] = 0.f;
+        for (int e = 0; e < 4; ++e)
+          dsa[nt][e] = sa[nt][e] * (dsa[nt][e] - d_t[nt * 8 + 2 * t4 + (e & 1)]);
+      keys_by_head_dim<T, HD, BQ>(dka, dsa, q_t, lane);  // dK += dS^T Q
+      // dS^T into the warp's 16 rows of the shared tile (bf16 rounded as
+      // the A fragments of dK were)
 #pragma unroll
-      for (int kq = 0; kq < KQ; ++kq) {
-        uint32_t a[4];
-        smem_a_frag<LD>(a, v_s, warp * 16 + g, kq * 16 + 2 * t4);
+      for (int nt = 0; nt < NQ; ++nt) {
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const bf16* dr = do_t + (nt * 8 + g) * LD + kq * 16 + 2 * t4;
-          mma_bf16(dpt[nt], a, ld32(dr), ld32(dr + 8));
-        }
-      }
-      // dS^T = P^T (dP^T - D), in place of P^T
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[nt][e] *= dpt[nt][e] - d_t[nt * 8 + 2 * t4 + (e & 1)];
-      // dK += dS^T Q
-#pragma unroll
-      for (int kk = 0; kk < NT / 2; ++kk) {
-        const uint32_t a[4] = {pack_bf16x2(st[2 * kk][0], st[2 * kk][1]),
-                               pack_bf16x2(st[2 * kk][2], st[2 * kk][3]),
-                               pack_bf16x2(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-                               pack_bf16x2(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-        const bf16* qrow =
-            q_t + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
-#pragma unroll
-        for (int dt = 0; dt < DT; dt += 2) {
-          uint32_t bb[4];
-          ldmatrix_x4_trans(bb, qrow + dt * 8);
-          mma_bf16(dka[dt], a, bb[0], bb[1]);
-          mma_bf16(dka[dt + 1], a, bb[2], bb[3]);
+        for (int r = 0; r < 2; ++r) {
+          T* dst = ds_s + (warp * 16 + g + 8 * r) * LDS + nt * 8 + 2 * t4;
+          if constexpr (kF32)
+            store2(dst, dsa[nt][2 * r], dsa[nt][2 * r + 1]);
+          else
+            *reinterpret_cast<uint32_t*>(dst) = pack_bf16x2(dsa[nt][2 * r], dsa[nt][2 * r + 1]);
         }
       }
     }
-    __syncthreads();  // the stage is free for the load two tiles on
+    __syncthreads();  // dS^T is whole
+
+    // dQ_part = dS K over the tile's live keys: rows 16 mq + g, + 8;
+    // columns 8 (dq0 + j) + 2 t4 + {0, 1}
+    float dqa[kDqCols][4];
+#pragma unroll
+    for (int j = 0; j < kDqCols; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqa[j][e] = 0.f;
+    for (int kk = 0; kk < key_steps; ++kk) {
+      if constexpr (kF32) {
+        // A column t4 is key 2 t4 of the k8 step, column t4 + 4 key 2 t4 + 1
+        const float* dsr = ds_s + (kk * 8 + 2 * t4) * LDS + mq * 16 + g;
+        uint32_t a_hi[4], a_lo[4];
+        split_tf32(dsr[0], a_hi[0], a_lo[0]);
+        split_tf32(dsr[8], a_hi[1], a_lo[1]);
+        split_tf32(dsr[LDS], a_hi[2], a_lo[2]);
+        split_tf32(dsr[LDS + 8], a_hi[3], a_lo[3]);
+        const float* kr = k_s + (kk * 8 + 2 * t4) * LD + g;
+#pragma unroll
+        for (int j = 0; j < kDqCols; ++j) {
+          const int dt = dq0 + j;
+          if (dt < DT) mma_tf32x3(dqa[j], a_hi, a_lo, kr[dt * 8], kr[LD + dt * 8]);
+        }
+      } else {
+        // A = dS from dS^T, transposed by ldmatrix: matrices (keys 0-7,
+        // queries 0-7), (keys 0-7, queries 8-15), (keys 8-15, queries 0-7),
+        // (keys 8-15, queries 8-15) of the step
+        uint32_t a[4];
+        ldmatrix_x4_trans(a, ds_s + (kk * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) * LDS +
+                                 mq * 16 + ((lane >> 3) & 1) * 8);
+        const T* krow = k_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                        (lane >> 4) * 8;
+#pragma unroll
+        for (int j = 0; j < kDqCols; j += 2) {
+          const int dt = dq0 + j;
+          if (j + 1 < kDqCols) {
+            uint32_t bb[4];
+            ldmatrix_x4_trans(bb, krow + dt * 8);
+            mma_bf16(dqa[j], a, bb[0], bb[1]);
+            mma_bf16(dqa[j + 1], a, bb[2], bb[3]);
+          } else {
+            uint32_t bb[2];
+            ldmatrix_x2_trans(bb, krow + dt * 8);
+            mma_bf16(dqa[j], a, bb[0], bb[1]);
+          }
+        }
+      }
+    }
+    float* acc = dq_acc + ((static_cast<int64_t>(b) * nq + h) * n_qt + qt) * (BQ * HD);
+#pragma unroll
+    for (int j = 0; j < kDqCols; ++j) {
+      const int dt = dq0 + j;
+      if (dt < DT)
+        atomicAdd(reinterpret_cast<float4*>(acc + ((dt * MQ + mq) * 32 + lane) * 4),
+                  make_float4(dqa[j][0], dqa[j][1], dqa[j][2], dqa[j][3]));
+    }
   }
   cp_async_wait_all();
 
-  if (!warp_live) return;
+  if (!live) return;
+  if (splits == 1) {
+    // dK (scaled) and dV of this warp's keys in the input type; keys past
+    // s are left out
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (keys[r] >= s) continue;
-    const int64_t off = ((static_cast<int64_t>(b) * s + keys[r]) * nkv + kvh) * HD + 2 * t4;
+    for (int r = 0; r < 2; ++r) {
+      const int key = kw0 + g + 8 * r;
+      if (key >= s) continue;
+      const int64_t off = ((static_cast<int64_t>(b) * s + key) * nkv + kvh) * HD + 2 * t4;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        store2(dk + off + dt * 8, dka[dt][2 * r] * scale, dka[dt][2 * r + 1] * scale);
+        store2(dv + off + dt * 8, dva[dt][2 * r], dva[dt][2 * r + 1]);
+      }
+    }
+  } else {
+    // this split's share, added in the fragment layout (n8 tile, m16 tile,
+    // lane, 4) of the key tile; dV's accumulator follows all of dK's
+    const int64_t tile = (static_cast<int64_t>(b) * nkv + kvh) * n_kt + kt;
+    float* dk_t = dkv_acc + tile * (kMmaKeys * HD);
+    float* dv_t = dk_t + static_cast<int64_t>(batch) * nkv * n_kt * (kMmaKeys * HD);
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + dt * 8) =
-          __floats2bfloat162_rn(dka[dt][2 * r] * scale, dka[dt][2 * r + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + dt * 8) =
-          __floats2bfloat162_rn(dva[dt][2 * r], dva[dt][2 * r + 1]);
+      const int off = ((dt * kMmaWarps + warp) * 32 + lane) * 4;
+      atomicAdd(reinterpret_cast<float4*>(dk_t + off),
+                make_float4(dka[dt][0], dka[dt][1], dka[dt][2], dka[dt][3]));
+      atomicAdd(reinterpret_cast<float4*>(dv_t + off),
+                make_float4(dva[dt][0], dva[dt][1], dva[dt][2], dva[dt][3]));
     }
+  }
+}
+
+// One f32 accumulator in the fragment layout (per tile of `rows` rows of
+// one head: n8 tile, m16 tile, lane, 4 floats) to be written as a
+// contiguous (B, S, heads, HD) tensor, times `scale`.
+struct ConvertJob {
+  const float* acc;
+  void* out;
+  int heads, rows;
+  float scale;
+  int64_t pieces;  // float4 pieces: B * heads * tiles * rows * HD / 4
+};
+
+struct ConvertJobs {
+  ConvertJob job[3];  // dQ; dK and dV when the key tiles were split
+  int n;
+};
+
+// After the mma route's main kernel: each thread one 16-byte piece of an
+// accumulator (coalesced reads), written as two pairs of rows r and r + 8.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kPrePostThreads) flash_attention_bwd_convert_kernel(
+    const __grid_constant__ ConvertJobs jobs, int s) {
+  int64_t p = static_cast<int64_t>(blockIdx.x) * kPrePostThreads + threadIdx.x;
+  int j = 0;
+  while (j < jobs.n && p >= jobs.job[j].pieces) p -= jobs.job[j++].pieces;
+  if (j == jobs.n) return;
+  const ConvertJob& job = jobs.job[j];
+  const int mts = job.rows / 16;
+  const int per_tile = job.rows * HD / 4;
+  const int n_tiles = (s + job.rows - 1) / job.rows;
+  const int64_t tile = p / per_tile;
+  const int x = static_cast<int>(p % per_tile);
+  const int lane = x % 32;
+  const int mt = x / 32 % mts;
+  const int nt = x / 32 / mts;
+  const int64_t bh = tile / n_tiles;
+  const int h = static_cast<int>(bh % job.heads);
+  const int64_t b = bh / job.heads;
+  const int row = static_cast<int>(tile % n_tiles) * job.rows + mt * 16 + lane / 4;
+  const int col = nt * 8 + 2 * (lane % 4);
+  const float4 a = reinterpret_cast<const float4*>(job.acc)[p];
+  T* out = static_cast<T*>(job.out);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row + 8 * r < s)
+      store2(out + ((b * s + row + 8 * r) * job.heads + h) * HD + col,
+             (r ? a.z : a.x) * job.scale, (r ? a.w : a.y) * job.scale);
   }
 }
 
@@ -635,7 +710,6 @@ constexpr int kWgConsumerRegs = 240;
 constexpr int kWgProducerRegs = 24;
 constexpr int kKeyBoxBytes = kWgKeys * kBoxRowBytes;  // (128 keys, 64 columns): 16 KB
 constexpr int kRowBoxBytes = kWgRows * kBoxRowBytes;  // (64 rows, 64 columns): 8 KB
-constexpr int kPrePostThreads = 256;
 constexpr int kGridGroups = 8;  // (batch, kv head) pairs per block of the main kernel's grid
 
 template <int HD>
@@ -661,36 +735,6 @@ constexpr size_t wgmma_smem_bytes() {
   return sizeof(BwdSmem<HD>) + 1024;  // room to align the base to 1024 B
 }
 
-// Before the main kernel: D = rowsum(dO * o) and lse copied into rows of
-// s_pad (0 past s, so that a 64-row stage is one aligned bulk copy), and
-// the f32 dQ accumulator zeroed.  One warp per row of (B, nq, s_pad).
-template <int HD>
-__global__ void __launch_bounds__(kPrePostThreads) flash_attention_bwd_pre_kernel(
-    const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
-    float* __restrict__ lse_pad, float* __restrict__ delta_pad, float* __restrict__ dq_acc,
-    int batch, int s, int s_pad, int nq, Strides os, Strides dos) {
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * (kPrePostThreads / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= static_cast<int64_t>(batch) * nq * s_pad) return;
-  const int i = static_cast<int>(row % s_pad);
-  const int64_t bh = row / s_pad;
-  const int h = static_cast<int>(bh % nq);
-  const int b = static_cast<int>(bh / nq);
-  float4* acc = reinterpret_cast<float4*>(dq_acc + row * HD);  // HD floats per padded row
-  for (int c = lane; c < HD / 4; c += 32) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  float d = 0.f;
-  if (i < s) {  // the same for the whole warp
-    const bf16* orow = o + b * os.b + static_cast<int64_t>(i) * os.s + h * os.h;
-    const bf16* drow = dout + b * dos.b + static_cast<int64_t>(i) * dos.s + h * dos.h;
-    for (int c = lane; c < HD; c += 32) d = fmaf(to_f32(orow[c]), to_f32(drow[c]), d);
-    d = warp_sum(d);
-  }
-  if (lane == 0) {
-    delta_pad[row] = d;
-    lse_pad[row] = i < s ? lse[bh * s + i] : 0.f;
-  }
-}
 
 // dK and dV of a 128-key tile of one kv head over every query head of its
 // group, and the tile's share of dQ added into the f32 accumulator.
@@ -1021,218 +1065,80 @@ __global__ void __launch_bounds__(kPrePostThreads) flash_attention_bwd_post_kern
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA-core kernels, a warp per row, lane l holding columns l + 32 p
-// ---------------------------------------------------------------------------
-
-template <int HD>
-__host__ __device__ constexpr int per_lane() {
-  return (HD + 31) / 32;
-}
-
-template <int HD>
-__device__ __forceinline__ void load_row(float (&r)[per_lane<HD>()], const float* p, int lane) {
-#pragma unroll
-  for (int c = 0; c < per_lane<HD>(); ++c) {
-    const int d = lane + 32 * c;
-    r[c] = d < HD ? p[d] : 0.f;
-  }
-}
-
-template <int HD>
-__device__ __forceinline__ float row_dot(const float (&r)[per_lane<HD>()], const float* p,
-                                         int lane) {
-  float acc = 0.f;
-#pragma unroll
-  for (int c = 0; c < per_lane<HD>(); ++c) {
-    const int d = lane + 32 * c;
-    if (d < HD) acc = fmaf(r[c], p[d], acc);
-  }
-  return warp_sum(acc);
-}
-
-template <int HD>
-__device__ __forceinline__ void store_row(float* p, const float (&r)[per_lane<HD>()], float mul,
-                                          int lane) {
-#pragma unroll
-  for (int c = 0; c < per_lane<HD>(); ++c) {
-    const int d = lane + 32 * c;
-    if (d < HD) p[d] = r[c] * mul;
-  }
-}
-
-// kDQ false: lse (log2 units) and D of query row i.  kDQ true: dQ of row i.
-template <int HD, bool kDQ>
-__global__ void __launch_bounds__(kThreads) flash_attention_bwd_simt_rows_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ o, const float* __restrict__ dout, float* __restrict__ lse,
-    float* __restrict__ delta, float* __restrict__ dq, int s, int nq, int nkv, Strides qs,
-    Strides ks, Strides vs, Strides os, Strides dos, int causal, int window, float scale_log2,
-    float scale) {
-  constexpr int P = per_lane<HD>();
-  const int lane = threadIdx.x % 32;
-  const int i = blockIdx.x * kSimtRows + threadIdx.x / 32;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  if (i >= s) return;
-  const int kvh = h / (nq / nkv);
-  const int64_t lrow = (static_cast<int64_t>(b) * nq + h) * s + i;
-  float qr[P], dor[P];
-  load_row<HD>(qr, q + b * qs.b + static_cast<int64_t>(i) * qs.s + h * qs.h, lane);
-  load_row<HD>(dor, dout + b * dos.b + static_cast<int64_t>(i) * dos.s + h * dos.h, lane);
-  const float* kb = k + b * ks.b + kvh * ks.h;
-  const float* vb = v + b * vs.b + kvh * vs.h;
-  const int j_begin = window > 0 ? max(0, i - window + 1) : 0;
-  const int j_end = causal ? i + 1 : s;
-  if constexpr (!kDQ) {
-    float m = -__int_as_float(0x7f800000);
-    float l = 0.f;
-    for (int j = j_begin; j < j_end; ++j) {
-      if (!visible(i, j, causal, window)) continue;
-      const float sc = row_dot<HD>(qr, kb + static_cast<int64_t>(j) * ks.s, lane) * scale_log2;
-      const float mt = fmaxf(m, sc);
-      l = l * exp2f(m - mt) + exp2f(sc - mt);
-      m = mt;
-    }
-    const float d = row_dot<HD>(dor, o + b * os.b + static_cast<int64_t>(i) * os.s + h * os.h,
-                                lane);
-    if (lane == 0) {
-      lse[lrow] = m + log2f(l);
-      delta[lrow] = d;
-    }
-  } else {
-    const float lse2 = lse[lrow];
-    const float d = delta[lrow];
-    float acc[P];
-#pragma unroll
-    for (int c = 0; c < P; ++c) acc[c] = 0.f;
-    for (int j = j_begin; j < j_end; ++j) {
-      if (!visible(i, j, causal, window)) continue;
-      const float* kr = kb + static_cast<int64_t>(j) * ks.s;
-      const float sc = row_dot<HD>(qr, kr, lane) * scale_log2;
-      const float dp = row_dot<HD>(dor, vb + static_cast<int64_t>(j) * vs.s, lane);
-      const float ds = exp2f(sc - lse2) * (dp - d);
-#pragma unroll
-      for (int c = 0; c < P; ++c) {
-        const int dd = lane + 32 * c;
-        if (dd < HD) acc[c] = fmaf(ds, kr[dd], acc[c]);
-      }
-    }
-    store_row<HD>(dq + ((static_cast<int64_t>(b) * s + i) * nq + h) * HD, acc, scale, lane);
-  }
-}
-
-// dK and dV of key row j of one kv head, over every query head of its group
-template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_attention_bwd_simt_kv_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int s,
-    int nq, int nkv, Strides qs, Strides ks, Strides vs, Strides dos, int causal, int window,
-    float scale_log2, float scale) {
-  constexpr int P = per_lane<HD>();
-  const int lane = threadIdx.x % 32;
-  const int j = blockIdx.x * kSimtRows + threadIdx.x / 32;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  if (j >= s) return;
-  const int group = nq / nkv;
-  float kr[P], vr[P], dka[P], dva[P];
-  load_row<HD>(kr, k + b * ks.b + static_cast<int64_t>(j) * ks.s + kvh * ks.h, lane);
-  load_row<HD>(vr, v + b * vs.b + static_cast<int64_t>(j) * vs.s + kvh * vs.h, lane);
-#pragma unroll
-  for (int c = 0; c < P; ++c) {
-    dka[c] = 0.f;
-    dva[c] = 0.f;
-  }
-  const int i_begin = causal ? j : 0;
-  const int i_end = window > 0 ? min(s, j + window) : s;
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = kvh * group + hh;
-    const int64_t lrow = (static_cast<int64_t>(b) * nq + h) * s;
-    for (int i = i_begin; i < i_end; ++i) {
-      if (!visible(i, j, causal, window)) continue;
-      float qi[P], doi[P];
-      load_row<HD>(qi, q + b * qs.b + static_cast<int64_t>(i) * qs.s + h * qs.h, lane);
-      load_row<HD>(doi, dout + b * dos.b + static_cast<int64_t>(i) * dos.s + h * dos.h, lane);
-      float sp = 0.f, dpp = 0.f;
-#pragma unroll
-      for (int c = 0; c < P; ++c) {
-        sp = fmaf(qi[c], kr[c], sp);
-        dpp = fmaf(doi[c], vr[c], dpp);
-      }
-      const float p = exp2f(warp_sum(sp) * scale_log2 - lse[lrow + i]);
-      const float ds = p * (warp_sum(dpp) - delta[lrow + i]);
-#pragma unroll
-      for (int c = 0; c < P; ++c) {
-        dva[c] = fmaf(p, doi[c], dva[c]);
-        dka[c] = fmaf(ds, qi[c], dka[c]);
-      }
-    }
-  }
-  const int64_t off = ((static_cast<int64_t>(b) * s + j) * nkv + kvh) * HD;
-  store_row<HD>(dk + off, dka, scale, lane);
-  store_row<HD>(dv + off, dva, 1.f, lane);
-}
-
-// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
 struct Args {
   const void *q, *k, *v, *o, *dout;
-  void *dq, *dk, *dv, *lse, *delta, *lse_pad, *dq_acc;
+  void *dq, *dk, *dv, *lse, *delta, *lse_pad, *dq_acc, *dkv_acc;
   int batch, s, nq, nkv;
   Strides qs, ks, vs, os, dos;
-  int causal, window, lse_given;
+  int causal, window, splits;
   float scale;
 };
 
-template <int HD>
-int launch_mma(const Args& a, cudaStream_t stream) {
-  constexpr size_t rows_smem = rows_smem_bytes<HD>();
-  constexpr size_t kv_smem = kv_smem_bytes<HD>();
-  auto lse_kernel = flash_attention_bwd_rows_kernel<HD, false>;
-  auto dq_kernel = flash_attention_bwd_rows_kernel<HD, true>;
-  auto kv_kernel = flash_attention_bwd_kv_kernel<HD>;
-  static const cudaError_t attr[3] = {
-      cudaFuncSetAttribute(lse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(rows_smem)),
-      cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(rows_smem)),
-      cudaFuncSetAttribute(kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(kv_smem))};
-  for (cudaError_t e : attr)
-    if (e != cudaSuccess) return static_cast<int>(e);
-  const int elt = static_cast<int>(sizeof(bf16));
-  const int vec16 = rows_aligned16(a.q, a.qs, elt) && rows_aligned16(a.k, a.ks, elt) &&
-                    rows_aligned16(a.v, a.vs, elt) && rows_aligned16(a.dout, a.dos, elt);
-  const float scale_log2 = a.scale * kLog2e;
-  const auto* q = static_cast<const bf16*>(a.q);
-  const auto* k = static_cast<const bf16*>(a.k);
-  const auto* v = static_cast<const bf16*>(a.v);
-  const auto* o = static_cast<const bf16*>(a.o);
-  const auto* dout = static_cast<const bf16*>(a.dout);
-  auto* lse = static_cast<float*>(a.lse);
-  auto* delta = static_cast<float*>(a.delta);
-  const dim3 rows_grid((a.s + kRows - 1) / kRows, a.nq, a.batch);
-  lse_kernel<<<rows_grid, kThreads, rows_smem, stream>>>(
-      q, k, v, o, dout, lse, delta, nullptr, a.s, a.nq, a.nkv, a.qs, a.ks, a.vs, a.os, a.dos,
-      a.causal, a.window, scale_log2, a.scale, vec16);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kv_kernel<<<dim3((a.s + kRows - 1) / kRows, a.nkv, a.batch), kThreads, kv_smem, stream>>>(
-      q, k, v, dout, lse, delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.s, a.nq,
-      a.nkv, a.qs, a.ks, a.vs, a.dos, a.causal, a.window, scale_log2, a.scale, vec16);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dq_kernel<<<rows_grid, kThreads, rows_smem, stream>>>(
-      q, k, v, o, dout, lse, delta, static_cast<bf16*>(a.dq), a.s, a.nq, a.nkv, a.qs, a.ks,
-      a.vs, a.os, a.dos, a.causal, a.window, scale_log2, a.scale, vec16);
+// D, lse into padded rows, the accumulators zeroed (dkv_rows rows of HD
+// floats of the split dK/dV accumulator, or none)
+template <typename T, int HD>
+int launch_pre(const Args& a, int s_pad, int64_t dkv_rows, cudaStream_t stream) {
+  const int64_t rows = static_cast<int64_t>(a.batch) * a.nq * s_pad + dkv_rows;
+  constexpr int kWarps = kPrePostThreads / 32;
+  flash_attention_bwd_pre_kernel<T, HD>
+      <<<static_cast<unsigned>((rows + kWarps - 1) / kWarps), kPrePostThreads, 0, stream>>>(
+          static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
+          static_cast<const float*>(a.lse), static_cast<float*>(a.lse_pad),
+          static_cast<float*>(a.delta), static_cast<float*>(a.dq_acc),
+          static_cast<float*>(a.dkv_acc), dkv_rows, a.batch, a.s, s_pad, a.nq, a.os, a.dos);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The wgmma route: lse from the forward (or, when none is given, from
-// the mma route's lse kernel), the pre-pass, the main kernel, the post-pass.
+// The mma route: the pre-pass, the main kernel over (key tile, batch x kv
+// head, split), the post-pass (dQ; dK and dV too when split).
+template <typename T, int HD>
+int launch_mma(const Args& a, cudaStream_t stream) {
+  constexpr int BQ = MmaBwd<T>::kRows;
+  constexpr size_t smem = mma_smem_bytes<T, HD>();
+  auto kernel = flash_attention_bwd_mma_kernel<T, HD>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (a.splits < 1 || (a.splits > 1 && a.dkv_acc == nullptr)) return kBadShape;
+  const int n_qt = (a.s + BQ - 1) / BQ;
+  const int n_kt = (a.s + kMmaKeys - 1) / kMmaKeys;
+  const int64_t kv_floats = static_cast<int64_t>(a.batch) * a.nkv * n_kt * kMmaKeys * HD;
+  int rc = launch_pre<T, HD>(a, n_qt * BQ, a.splits > 1 ? 2 * kv_floats / HD : 0, stream);
+  if (rc != 0) return rc;
+  const int elt = static_cast<int>(sizeof(T));
+  const int vec16 = rows_aligned16(a.q, a.qs, elt) && rows_aligned16(a.k, a.ks, elt) &&
+                    rows_aligned16(a.v, a.vs, elt) && rows_aligned16(a.dout, a.dos, elt);
+  const int64_t ctas = static_cast<int64_t>(n_kt) * a.batch * a.nkv * a.splits;
+  kernel<<<static_cast<unsigned>(ctas), kMmaThreads, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse_pad),
+      static_cast<const float*>(a.delta), static_cast<float*>(a.dq_acc), static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), static_cast<float*>(a.dkv_acc), a.batch, a.s, a.nq, a.nkv, a.qs,
+      a.ks, a.vs, a.dos, a.causal, a.window, a.scale * kLog2e, a.scale, vec16, a.splits);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ConvertJobs jobs{};
+  const int64_t q_floats = static_cast<int64_t>(a.batch) * a.nq * n_qt * BQ * HD;
+  jobs.job[0] = {static_cast<const float*>(a.dq_acc), a.dq, a.nq, BQ, a.scale, q_floats / 4};
+  jobs.n = 1;
+  if (a.splits > 1) {
+    const float* dk_acc = static_cast<const float*>(a.dkv_acc);
+    jobs.job[1] = {dk_acc, a.dk, a.nkv, kMmaKeys, a.scale, kv_floats / 4};
+    jobs.job[2] = {dk_acc + kv_floats, a.dv, a.nkv, kMmaKeys, 1.f, kv_floats / 4};
+    jobs.n = 3;
+  }
+  int64_t pieces = 0;
+  for (int j = 0; j < jobs.n; ++j) pieces += jobs.job[j].pieces;
+  flash_attention_bwd_convert_kernel<T, HD>
+      <<<static_cast<unsigned>((pieces + kPrePostThreads - 1) / kPrePostThreads),
+         kPrePostThreads, 0, stream>>>(jobs, a.s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wgmma route: the pre-pass, the main kernel, the post-pass.
 template <int HD>
 int launch_wgmma(const Args& a, cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map, do_map;
@@ -1242,85 +1148,26 @@ int launch_wgmma(const Args& a, cudaStream_t stream) {
   if (rc == 0) rc = make_map(&do_map, a.dout, a.batch, a.s, a.nq, HD, a.dos, kWgRows);
   if (rc != 0) return rc;
   constexpr size_t smem = wgmma_smem_bytes<HD>();
-  constexpr size_t rows_smem = rows_smem_bytes<HD>();
   auto main_kernel = flash_attention_bwd_wgmma_kernel<HD>;
-  auto lse_kernel = flash_attention_bwd_rows_kernel<HD, false>;
-  static const cudaError_t attr[2] = {
-      cudaFuncSetAttribute(main_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem)),
-      cudaFuncSetAttribute(lse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(rows_smem))};
-  for (cudaError_t e : attr)
-    if (e != cudaSuccess) return static_cast<int>(e);
-  const float scale_log2 = a.scale * kLog2e;
-  const auto* o = static_cast<const bf16*>(a.o);
-  const auto* dout = static_cast<const bf16*>(a.dout);
-  auto* lse = static_cast<float*>(a.lse);
-  auto* delta_pad = static_cast<float*>(a.delta);
-  auto* lse_pad = static_cast<float*>(a.lse_pad);
-  auto* dq_acc = static_cast<float*>(a.dq_acc);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      main_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const int n_qt = (a.s + kWgRows - 1) / kWgRows;
-  const int s_pad = n_qt * kWgRows;
-  cudaError_t e;
-  if (!a.lse_given) {
-    // its D lands in delta_pad's first B * nq * S floats and is rewritten
-    // in the padded layout by the pre-pass
-    const int elt = static_cast<int>(sizeof(bf16));
-    const int vec16 = rows_aligned16(a.q, a.qs, elt) && rows_aligned16(a.k, a.ks, elt) &&
-                      rows_aligned16(a.v, a.vs, elt) && rows_aligned16(a.dout, a.dos, elt);
-    lse_kernel<<<dim3((a.s + kRows - 1) / kRows, a.nq, a.batch), kThreads, rows_smem, stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), o, dout, lse, delta_pad, nullptr, a.s, a.nq, a.nkv, a.qs,
-        a.ks, a.vs, a.os, a.dos, a.causal, a.window, scale_log2, a.scale, vec16);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int64_t rows = static_cast<int64_t>(a.batch) * a.nq * s_pad;
-  constexpr int kWarps = kPrePostThreads / 32;
-  flash_attention_bwd_pre_kernel<HD>
-      <<<static_cast<unsigned>((rows + kWarps - 1) / kWarps), kPrePostThreads, 0, stream>>>(
-          o, dout, lse, lse_pad, delta_pad, dq_acc, a.batch, a.s, s_pad, a.nq, a.os, a.dos);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+  rc = launch_pre<bf16, HD>(a, n_qt * kWgRows, 0, stream);
+  if (rc != 0) return rc;
   const int ctas = (a.s + kWgKeys - 1) / kWgKeys * a.nkv * a.batch;
   main_kernel<<<ctas, kWgThreads, smem, stream>>>(
-      q_map, k_map, v_map, do_map, lse_pad, delta_pad, dq_acc, static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.batch, a.s, a.nq, a.nkv, a.causal, a.window, scale_log2,
-      a.scale);
-  e = cudaGetLastError();
+      q_map, k_map, v_map, do_map, static_cast<const float*>(a.lse_pad),
+      static_cast<const float*>(a.delta), static_cast<float*>(a.dq_acc),
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.batch, a.s, a.nq, a.nkv, a.causal,
+      a.window, a.scale * kLog2e, a.scale);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int64_t parts = static_cast<int64_t>(a.batch) * a.nq * n_qt * (HD / 64);
   flash_attention_bwd_post_kernel<HD><<<static_cast<unsigned>(parts), kPrePostThreads, 0,
-                                        stream>>>(dq_acc, static_cast<bf16*>(a.dq), a.s, a.nq,
-                                                  n_qt, a.scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int HD>
-int launch_simt(const Args& a, cudaStream_t stream) {
-  const float scale_log2 = a.scale * kLog2e;
-  const auto* q = static_cast<const float*>(a.q);
-  const auto* k = static_cast<const float*>(a.k);
-  const auto* v = static_cast<const float*>(a.v);
-  const auto* o = static_cast<const float*>(a.o);
-  const auto* dout = static_cast<const float*>(a.dout);
-  auto* lse = static_cast<float*>(a.lse);
-  auto* delta = static_cast<float*>(a.delta);
-  const int blocks = (a.s + kSimtRows - 1) / kSimtRows;
-  const dim3 rows_grid(blocks, a.nq, a.batch);
-  flash_attention_bwd_simt_rows_kernel<HD, false><<<rows_grid, kThreads, 0, stream>>>(
-      q, k, v, o, dout, lse, delta, nullptr, a.s, a.nq, a.nkv, a.qs, a.ks, a.vs, a.os, a.dos,
-      a.causal, a.window, scale_log2, a.scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  flash_attention_bwd_simt_kv_kernel<HD><<<dim3(blocks, a.nkv, a.batch), kThreads, 0, stream>>>(
-      q, k, v, dout, lse, delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.s,
-      a.nq, a.nkv, a.qs, a.ks, a.vs, a.dos, a.causal, a.window, scale_log2, a.scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  flash_attention_bwd_simt_rows_kernel<HD, true><<<rows_grid, kThreads, 0, stream>>>(
-      q, k, v, o, dout, lse, delta, static_cast<float*>(a.dq), a.s, a.nq, a.nkv, a.qs, a.ks,
-      a.vs, a.os, a.dos, a.causal, a.window, scale_log2, a.scale);
+                                        stream>>>(static_cast<const float*>(a.dq_acc),
+                                                  static_cast<bf16*>(a.dq), a.s, a.nq, n_qt,
+                                                  a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1330,43 +1177,42 @@ int launch_simt(const Args& a, cudaStream_t stream) {
 // q, o, dout: (B, S, nq, hd); k, v: (B, S, nkv, hd); all in `dtype`,
 // addressed by the given (batch, seq, head) strides in elements with
 // head_dim contiguous.  dq: contiguous (B, S, nq, hd), dk and dv:
-// contiguous (B, S, nkv, hd), in `dtype`.  Routes (the wrapper's
-// bwd_route): bf16 at head_dim 64 and 128 runs the wgmma kernel between
-// its pre- and post-pass (q, k, v and dout must suit TMA: base addresses
-// and strides multiples of 16 bytes); other bf16 the mma.sync kernels,
-// f32 the CUDA-core ones.  Scratch, f32: lse (B, nq, S), read when
-// lse_given (the forward's, log2 units; wgmma route only) and written
-// otherwise; delta, B * nq * S on the mma and CUDA-core routes and B * nq
-// * S_pad on the wgmma route (S_pad = S rounded up to 64), which also
-// takes lse_pad (B * nq * S_pad) and dq_acc (B * nq * S_pad * hd); the
-// other routes ignore those two.  Launches on `stream`.  Returns 0, a
-// cudaError_t, or a negative repro::ArgError.
+// contiguous (B, S, nkv, hd), in `dtype`.  lse: the forward's, f32 (B,
+// nq, S) in log2 units.  Routes (the wrapper's bwd_route): bf16 at
+// head_dim 64 and 128 runs the wgmma kernel (q, k, v and dout must suit
+// TMA: base addresses and strides multiples of 16 bytes); bf16 at 32 and
+// 80 and f32 at every head_dim the mma kernel.  Each between the pre-pass
+// and a post-pass.  Scratch, f32, with S_pad = S rounded up to the
+// route's query tile (64; 32 for f32): delta and lse_pad (B * nq * S_pad
+// each), dq_acc (B * nq * S_pad * hd); on the mma route with splits > 1
+// (the wrapper's bwd_plan), dkv_acc (2 * B * nkv * S_kpad * hd, S_kpad =
+// S rounded up to 128), else null; the wgmma route takes splits 1.
+// Launches on `stream`.  Returns 0, a cudaError_t, or a negative
+// repro::ArgError.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
-    void* dk, void* dv, void* lse, void* delta, void* lse_pad, void* dq_acc, int batch, int s,
-    int nq, int nkv, int hd, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
-    int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb,
-    int64_t o_ss, int64_t o_sh, int64_t do_sb, int64_t do_ss, int64_t do_sh, int dtype,
-    int causal, int window, int lse_given, float scale, void* stream) {
+    void* dk, void* dv, void* lse, void* delta, void* lse_pad, void* dq_acc, void* dkv_acc,
+    int batch, int s, int nq, int nkv, int hd, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+    int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
+    int64_t o_sb, int64_t o_ss, int64_t o_sh, int64_t do_sb, int64_t do_ss, int64_t do_sh,
+    int dtype, int causal, int window, int splits, float scale, void* stream) {
   using namespace repro;
   if (nkv <= 0 || nq % nkv != 0) return kBadGroup;
   if (batch <= 0 || s <= 0) return kBadShape;
-  const bool wgmma = dtype == kBF16 && (hd == 64 || hd == 128);
-  if (lse_given && !wgmma) return kBadShape;
-  const Args a{q, k, v, o, dout, dq, dk, dv, lse, delta, lse_pad, dq_acc, batch, s, nq, nkv,
-               {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}, {o_sb, o_ss, o_sh},
-               {do_sb, do_ss, do_sh}, causal, window, lse_given, scale};
+  const Args a{q, k, v, o, dout, dq, dk, dv, lse, delta, lse_pad, dq_acc, dkv_acc, batch, s,
+               nq, nkv, {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh},
+               {o_sb, o_ss, o_sh}, {do_sb, do_ss, do_sh}, causal, window, splits, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) {
     switch (hd) {
       case 32:
-        return launch_simt<32>(a, st);
+        return launch_mma<float, 32>(a, st);
       case 64:
-        return launch_simt<64>(a, st);
+        return launch_mma<float, 64>(a, st);
       case 80:
-        return launch_simt<80>(a, st);
+        return launch_mma<float, 80>(a, st);
       case 128:
-        return launch_simt<128>(a, st);
+        return launch_mma<float, 128>(a, st);
       default:
         return kBadHeadDim;
     }
@@ -1374,13 +1220,13 @@ extern "C" int flash_attention_bwd_launch(
   if (dtype != kBF16) return kBadDType;
   switch (hd) {
     case 32:
-      return launch_mma<32>(a, st);
+      return launch_mma<bf16, 32>(a, st);
     case 64:
-      return launch_wgmma<64>(a, st);
+      return splits == 1 ? launch_wgmma<64>(a, st) : kBadShape;
     case 80:
-      return launch_mma<80>(a, st);
+      return launch_mma<bf16, 80>(a, st);
     case 128:
-      return launch_wgmma<128>(a, st);
+      return splits == 1 ? launch_wgmma<128>(a, st) : kBadShape;
     default:
       return kBadHeadDim;
   }

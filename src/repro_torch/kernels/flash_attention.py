@@ -28,31 +28,36 @@ to the plain version.  On a CPU tensor it runs the plain version,
 
 With ``return_lse=True`` the forward also returns each row's logsumexp
 of the scaled scores, f32 (B, nq, Sq) in log2 units (``ref.
-flash_attention``'s convention), for the backward: the wgmma route writes
-it from its epilogue (a second instantiation of the kernel; the serving
-path launches the one without), the mma route returns None.
+flash_attention``'s convention), for the backward: both kernels write it
+from their epilogue (a second instantiation of each; the serving path
+launches the one without).
 
 ``flash_attention_bwd`` is the gradient; its source's header gives each
-route's design, chosen by ``bwd_route``:
+route's design, chosen by ``bwd_route``.  Both take the forward's lse
+(given none, the wrapper runs the forward's lse instantiation first) and
+run three launches: a pre-pass (D = rowsum(dO o), the f32 dQ accumulator
+zeroed), the main kernel (the five products per tile, keys as rows, dK
+and dV in registers, dQ added with f32 atomics, so its last bits vary
+from run to run), and a post-pass (dQ to the input type):
 
 - ``"wgmma"``: bf16 at head_dim 64 and 128 (training's route).  One
-  wgmma kernel fed by TMA runs the five products per tile (FlashAttention-
-  3's backward), between a pre-pass (D, the dQ accumulator zeroed) and a
-  post-pass (dQ to bf16).  It takes the forward's lse; given none, it
-  computes lse first.  q, k, v and do pass through TMA (``tma_ok``: a
-  view that fails it is copied).  dQ is summed in f32 with atomics, so
-  its last bits vary from run to run.
-- ``"mma"``: bf16 at head_dim 32 and 80: FlashAttention-2's three
-  kernels on ``mma.sync`` tensor cores, lse recomputed.
-- ``"simt"``: f32: the same three passes on the CUDA cores in exact f32.
+  wgmma kernel fed by TMA (FlashAttention-3's backward); q, k, v and do
+  pass through TMA (``tma_ok``: a view that fails it is copied).
+- ``"mma"``: bf16 at head_dim 32 and 80 and f32 at every head_dim.  One
+  ``mma.sync`` kernel, f32 as three TF32 products of split operands
+  (``ref.flash_attention_bwd_tiled(tf32x3=True)`` is that arithmetic);
+  reads through strides.  ``bwd_plan`` sizes its grid from the shapes:
+  where the key tiles fill less than the card, each is split over
+  several CTAs, which add dK and dV through f32 atomics too.
 
-The last two ignore a given lse (their forward writes none).  It takes
-Sq == Sk only (all a training forward calls) and raises otherwise; it
-has its own launch counter (one per call), and the same rule: on a CUDA
-tensor it launches or raises, on a CPU tensor it runs
+It takes Sq == Sk only (all a training forward calls) and raises
+otherwise; it has its own launch counter (one per call), and the same
+rule: on a CUDA tensor it launches or raises, on a CPU tensor it runs
 ``ref.flash_attention_bwd``.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -76,15 +81,46 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
 
 
 def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
-    """Which kernels of ``csrc/flash_attention_bwd.cu`` a call takes."""
-    if dtype == torch.float32:
-        return "simt"
+    """Which kernel of ``csrc/flash_attention_bwd.cu`` a call takes: the
+    forward's route (f32 and bf16 at head_dim 32 and 80 on mma.sync)."""
     return route(dtype, head_dim)
 
 
-#: query rows per tile of the wgmma backward: lse, D and dQ's f32
-#: accumulator are kept in rows padded to a multiple of it
-BWD_ROWS = 64
+#: (query rows, keys) per tile of each backward kernel: lse, D and dQ's
+#: f32 accumulator are kept in rows padded to a multiple of the first
+BWD_TILES = {("wgmma", torch.bfloat16): (64, 128), ("mma", torch.bfloat16): (64, 128),
+             ("mma", torch.float32): (32, 128)}
+
+
+class BwdPlan(NamedTuple):
+    """How one backward call runs: its route, tiles, padded row count
+    (``s_pad``), key tiles, and how many CTAs share each key tile's walk
+    (``splits``; the f32 dK/dV accumulator takes ``dkv_floats``)."""
+    route: str
+    block_q: int
+    block_k: int
+    s_pad: int
+    key_tiles: int
+    splits: int
+    dkv_floats: int
+
+
+def bwd_plan(dtype: torch.dtype, batch: int, s: int, nq: int, nkv: int, hd: int,
+             sms: int) -> BwdPlan:
+    """The backward's grid from shapes alone.  The mma route runs one CTA
+    per (key tile, kv head, batch); where those fill fewer than the
+    card's ``sms`` multiprocessors, each key tile's walk over (query head,
+    query tile) is split over ceil(sms / CTAs) CTAs, or as many as the
+    walk has items if that is fewer."""
+    r = bwd_route(dtype, hd)
+    bq, bk = BWD_TILES[r, dtype]
+    n_qt, n_kt = -(-s // bq), -(-s // bk)
+    splits = 1
+    ctas = n_kt * nkv * batch
+    if r == "mma" and ctas < sms:
+        splits = min(-(-sms // ctas), nq // nkv * n_qt)
+    dkv = 2 * batch * nkv * n_kt * bk * hd if splits > 1 else 0
+    return BwdPlan(r, bq, bk, n_qt * bq, n_kt, splits, dkv)
 
 
 def tma_ok(t: torch.Tensor) -> bool:
@@ -109,20 +145,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, nq, hd); k, v: (B, Sk, nkv, hd), all f32 or all bf16.
     Returns a contiguous (B, Sq, nq, hd) in q.dtype; with ``return_lse``
     the pair (out, lse), lse the rows' logsumexp (f32 (B, nq, Sq), log2
-    units) on the wgmma route and on the CPU, None on the mma route."""
+    units)."""
     if not q.is_cuda:
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    return_lse=return_lse)
     _check("flash_attention", q, k, v)
     b, sq, nq, hd = q.shape
     sk, nkv = k.shape[1], k.shape[2]
-    lse = None
     if route(q.dtype, hd) == "wgmma":
         q, k, v = _tma_views(q, k, v)
-        if return_lse:
-            lse = torch.empty((b, nq, sq), dtype=torch.float32, device=q.device)
     else:   # only head_dim has to be contiguous; the rest is read through strides
         q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    lse = (torch.empty((b, nq, sq), dtype=torch.float32, device=q.device) if return_lse
+           else None)
     out = torch.empty((b, sq, nq, hd), dtype=q.dtype, device=q.device)
     lib = build.load("flash_attention")
     with torch.cuda.device(q.device):
@@ -163,9 +198,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                         lse: torch.Tensor | None = None):
     """Gradient of ``flash_attention``: q, o (its output) and do (the
     output's gradient) (B, S, nq, hd); k, v (B, S, nkv, hd), all f32 or
-    all bf16; lse, optional, the forward's (f32 (B, nq, S), log2 units),
-    used on the wgmma route (``bwd_route``) and by the plain version, and
-    recomputed when None.  Returns contiguous (dq, dk, dv) in q.dtype."""
+    all bf16; lse, optional, the forward's (f32 (B, nq, S), log2 units):
+    given None, the forward's lse instantiation computes it first (one
+    more forward launch).  Returns contiguous (dq, dk, dv) in q.dtype."""
     if not q.is_cuda:
         return ref.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, lse=lse)
     _check("flash_attention_bwd", q, k, v, o, do)
@@ -174,27 +209,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     if k.shape[1] != s:
         raise ValueError(f"flash_attention_bwd: {s} queries over {k.shape[1]} keys; "
                          f"the backward takes Sq == Sk only")
-    f32 = dict(dtype=torch.float32, device=q.device)
-    lse_pad = dq_acc = None
-    if bwd_route(q.dtype, hd) == "wgmma":
+    if lse is None:
+        lse = flash_attention(q, k, v, causal=causal, window=window, return_lse=True)[1]
+    elif lse.shape != (b, nq, s) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} {lse.dtype} on "
+                         f"{lse.device}; need f32 {(b, nq, s)} on {q.device}")
+    lse = lse.contiguous()
+    plan = bwd_plan(q.dtype, b, s, nq, nkv, hd,
+                    torch.cuda.get_device_properties(q.device).multi_processor_count)
+    if plan.route == "wgmma":
         q, k, v, do = _tma_views(q, k, v, do)
         o = o if o.stride(-1) == 1 else o.contiguous()
-        s_pad = -(-s // BWD_ROWS) * BWD_ROWS
-        if lse is not None:
-            if lse.shape != (b, nq, s) or lse.dtype != torch.float32 or lse.device != q.device:
-                raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} {lse.dtype} on "
-                                 f"{lse.device}; need f32 {(b, nq, s)} on {q.device}")
-            lse = lse.contiguous()
-        delta = torch.empty((b, nq, s_pad), **f32)
-        lse_pad = torch.empty_like(delta)
-        dq_acc = torch.empty((b, nq, s_pad, hd), **f32)
-    else:   # their forward writes no lse: it is recomputed
+    else:   # only head_dim has to be contiguous; the rest is read through strides
         q, k, v, o, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, o, do))
-        delta = torch.empty((b, nq, s), **f32)
-        lse = None
-    lse_given = lse is not None
-    if not lse_given:
-        lse = torch.empty((b, nq, s), **f32)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, nq, plan.s_pad), **f32)
+    lse_pad = torch.empty_like(delta)
+    dq_acc = torch.empty((b, nq, plan.s_pad, hd), **f32)
+    dkv_acc = torch.empty(plan.dkv_floats, **f32) if plan.dkv_floats else None
     dq = torch.empty((b, s, nq, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, s, nkv, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
@@ -204,12 +236,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         rc = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            None if lse_pad is None else lse_pad.data_ptr(),
-            None if dq_acc is None else dq_acc.data_ptr(),
+            lse_pad.data_ptr(), dq_acc.data_ptr(),
+            None if dkv_acc is None else dkv_acc.data_ptr(),
             b, s, nq, nkv, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             *do.stride()[:3],
-            _DTYPES[q.dtype], int(causal), int(window), int(lse_given), float(hd ** -0.5),
+            _DTYPES[q.dtype], int(causal), int(window), plan.splits, float(hd ** -0.5),
             stream)
     build.check(rc, "flash_attention_bwd")
     bwd_launches.add()

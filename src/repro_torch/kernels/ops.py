@@ -66,10 +66,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, backend=None):
 class FlashAttention(torch.autograd.Function):
     """Attention with the kernels' forward and backward: the port's
     ``flash_attention_trainable``.  Saves q, k, v, the output and the
-    rows' logsumexp (the wgmma forward writes it; the mma route gives
-    None and its backward recomputes it); the backward recomputes the
-    scores.  On CPU tensors both run the plain versions (the wrappers'
-    rule), lse included, so the CPU tests reach it too."""
+    rows' logsumexp, which the forward writes on every route (its kLse
+    instantiation) and the backward takes; the backward recomputes only
+    the scores.  On CPU tensors both run the plain versions (the
+    wrappers' rule), lse included, so the CPU tests reach it too."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):

@@ -122,20 +122,25 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, *,
                               block_q: int = 64, block_k: int = 128, causal: bool = True,
-                              window: int = 0, scale: float | None = None):
-    """``flash_attention_bwd`` computed the way the wgmma CUDA kernel
-    tiles it (Sq == Sk).  For each tile of ``block_k`` keys and each kv
-    head: every query head of the group and every tile of ``block_q``
-    rows that sees a key of the tile (the kernel's range: from the tile
-    holding the first key when causal, up to the last row the window lets
-    see the last key).  Per (key tile, query tile): S^T = K Q^T, P^T =
-    exp2(S^T scale log2(e) - lse) set to 0 where hidden or past S (every
-    tile masked, where the kernel masks only those it does not see whole:
-    the same values), dP^T = V dO^T, dS^T = P^T (dP^T - D); P^T and dS^T
-    are rounded to the input type before they enter dV += P^T dO, dK +=
-    dS^T Q and dQ += dS K, which the kernel sums in f32 over key tiles.
-    ``lse`` is the forward's (B, nq, S) f32 in log2 units.  Used by the
-    tests, never by the training path.
+                              window: int = 0, scale: float | None = None,
+                              tf32x3: bool = False):
+    """``flash_attention_bwd`` computed the way the CUDA kernels tile it
+    (Sq == Sk): the wgmma route and the mma route (``flash_attention.
+    BWD_TILES`` gives each route's tiles).  For each tile of ``block_k``
+    keys and each kv head: every query head of the group and every tile
+    of ``block_q`` rows that sees a key of the tile (the kernel's range:
+    from the tile holding the first key when causal, up to the last row
+    the window lets see the last key).  Per (key tile, query tile): S^T =
+    K Q^T, P^T = exp2(S^T scale log2(e) - lse) set to 0 where hidden or
+    past S (every tile masked, where the kernel masks only those it does
+    not see whole: the same values), dP^T = V dO^T, dS^T = P^T (dP^T -
+    D); P^T and dS^T are rounded to the input type before they enter dV
+    += P^T dO, dK += dS^T Q and dQ += dS K, which the kernel sums in f32
+    over key tiles.  With ``tf32x3`` (the mma route's f32 arithmetic) each
+    of the five products is three TF32 products of split operands
+    (``_einsum_tf32x3``), as the kernel's m16n8k8 TF32 tensor cores form
+    it.  ``lse`` is the forward's (B, nq, S) f32 in log2 units.  Used by
+    the tests, never by the training path.
     """
     b, s, nq, hd = q.shape
     nkv = k.shape[2]
@@ -148,6 +153,7 @@ def flash_attention_bwd_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.zeros((b, s, nkv, hd), dtype=torch.float32, device=q.device)
     dv = torch.zeros_like(dk)
     rnd = (lambda t: t.to(q.dtype).float()) if q.dtype != torch.float32 else (lambda t: t)
+    mm = _einsum_tf32x3 if tf32x3 else torch.einsum
     n_qt = -(-s // block_q)
     for c0 in range(0, s, block_k):
         c1 = min(c0 + block_k, s)
@@ -161,16 +167,16 @@ def flash_attention_bwd_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 i0, i1 = t * block_q, min(t * block_q + block_q, s)
                 qt = qf[:, i0:i1, heads]                          # (B,Tq,nkv,hd)
                 dot = dof[:, i0:i1, heads]
-                st = torch.einsum("bjkh,bikh->bkji", kt, qt)      # (B,nkv,Tk,Tq)
+                st = mm("bjkh,bikh->bkji", kt, qt)      # (B,nkv,Tk,Tq)
                 lt = lse2[:, heads, i0:i1][:, :, None, :]         # (B,nkv,1,Tq)
                 vis = _mask(s, s, causal, window, q.device)[i0:i1, c0:c1].T  # (Tk,Tq)
                 p = torch.where(vis, torch.exp2(st * (scale * _LOG2E) - lt), 0.0)
-                dpt = torch.einsum("bjkh,bikh->bkji", vt, dot)
+                dpt = mm("bjkh,bikh->bkji", vt, dot)
                 dst = p * (dpt - d[:, i0:i1, heads].permute(0, 2, 1)[:, :, None, :])
                 p, dst = rnd(p), rnd(dst)
-                dv[:, c0:c1] += torch.einsum("bkji,bikh->bjkh", p, dot)
-                dk[:, c0:c1] += torch.einsum("bkji,bikh->bjkh", dst, qt)
-                dq[:, i0:i1, heads] += torch.einsum("bkji,bjkh->bikh", dst, kt)
+                dv[:, c0:c1] += mm("bkji,bikh->bjkh", p, dot)
+                dk[:, c0:c1] += mm("bkji,bikh->bjkh", dst, qt)
+                dq[:, i0:i1, heads] += mm("bkji,bjkh->bikh", dst, kt)
     return ((dq * scale).to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype))
 
 
@@ -194,23 +200,29 @@ def _einsum_tf32x3(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_tf32x3(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            causal: bool = True, window: int = 0,
-                           scale: float | None = None) -> torch.Tensor:
+                           scale: float | None = None, return_lse: bool = False):
     """``flash_attention`` in f32 with the arithmetic of the CUDA mma
     kernel's f32 path: S = (scale q) k^T and O = P V each as three TF32
     tensor-core products of split operands, P = exp(S - rowmax)
-    unnormalised in f32, O divided by the f32 row sum at the end.  Used by
-    the tests and chip_smoke to hold that arithmetic to the f32
-    tolerance, never by the serving path."""
+    unnormalised in f32, O divided by the f32 row sum at the end; with
+    ``return_lse`` also (rowmax + log(row sum)) in log2 units, as the
+    kernel's kLse epilogue writes it.  Used by the tests and chip_smoke to
+    hold that arithmetic to the f32 tolerance, never by the serving
+    path."""
     b, sq, nq, hd = q.shape
     nkv, sk = k.shape[2], k.shape[1]
     scale = scale if scale is not None else hd ** -0.5
     qg = _group(q, nkv).float() * scale
     s = _einsum_tf32x3("bskgh,btkh->bkgst", qg, k.float())
     s = torch.where(_mask(sq, sk, causal, window, q.device), s, _NEG_INF)
-    p = torch.exp(s - s.amax(-1, keepdim=True))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
     out = _einsum_tf32x3("bkgst,btkh->bskgh", p, v.float())
     out = out / p.sum(-1).permute(0, 3, 1, 2)[..., None]
-    return out.reshape(b, sq, nq, hd).to(q.dtype)
+    out = out.reshape(b, sq, nq, hd).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, ((m[..., 0] + torch.log(p.sum(-1))) * _LOG2E).reshape(b, nq, sq)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

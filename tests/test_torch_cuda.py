@@ -484,10 +484,10 @@ def _assert_bwd_close(got, want, dtype):
     (1, 130, 4, 1, False, 33),     # a window without causality, GQA 4
     (2, 1, 4, 2, True, 0)])        # one row
 def test_flash_bwd_kernel_matches_plain(cuda, dtype, hd, b, s, nq, nkv, causal, window):
-    """bf16 at head_dim 64 and 128 on the wgmma kernel (lse recomputed:
-    none is given), at 32 and 80 on the mma.sync kernels, f32 on the
-    CUDA-core ones, against the plain FlashAttention-2 equations on the
-    same inputs and output."""
+    """bf16 at head_dim 64 and 128 on the wgmma kernel, bf16 at 32 and 80
+    and f32 on the mma.sync kernel (lse recomputed by the forward: none is
+    given), against the plain FlashAttention-2 equations on the same
+    inputs and output."""
     q, k, v, do = _bwd_inputs(cuda, b, s, nq, nkv, hd, dtype)
     o = ref.flash_attention(q, k, v, causal=causal, window=window)
     n = fa.bwd_launches.value
@@ -563,11 +563,89 @@ def test_flash_forward_lse_matches_plain_and_leaves_out_unchanged(cuda, hd, b, s
     torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("dtype,hd", [(torch.float32, 64), (torch.bfloat16, 80)])
-def test_flash_forward_mma_route_gives_no_lse(cuda, dtype, hd):
-    q, k, v, _ = _bwd_inputs(cuda, 1, 64, 4, 2, hd, dtype)
-    out, lse = fa.flash_attention(q, k, v, return_lse=True)
-    assert lse is None and torch.equal(out, fa.flash_attention(q, k, v))
+MMA_BWD_TYPES = [(torch.bfloat16, 32), (torch.bfloat16, 80), (torch.float32, 32),
+                 (torch.float32, 64), (torch.float32, 80), (torch.float32, 128)]
+
+
+@pytest.mark.parametrize("dtype,hd", MMA_BWD_TYPES)
+@pytest.mark.parametrize("b,sq,sk,nq,nkv,causal,window", [
+    (2, 128, 128, 8, 4, True, 0), (1, 77, 77, 4, 4, False, 0), (1, 200, 200, 10, 2, True, 64),
+    (1, 70, 200, 8, 1, False, 0)])
+def test_flash_forward_mma_route_lse_matches_plain_and_leaves_out_unchanged(
+        cuda, dtype, hd, b, sq, sk, nq, nkv, causal, window):
+    """The mma forward's lse (log2 units) against the plain version's (f32:
+    the split-TF32 arithmetic's), and its output bit for bit the same with
+    and without lse."""
+    assert fa.route(dtype, hd) == "mma"
+    q = torch.randn((b, sq, nq, hd), generator=cuda, device="cuda").to(dtype)
+    k = torch.randn((b, sk, nkv, hd), generator=cuda, device="cuda").to(dtype)
+    v = torch.randn((b, sk, nkv, hd), generator=cuda, device="cuda").to(dtype)
+    n = fa.launches.value
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    plain_out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches.value == n + 2
+    assert lse.dtype == torch.float32 and lse.shape == (b, nq, sq) and lse.is_contiguous()
+    assert torch.equal(out, plain_out)
+    if dtype == torch.float32:
+        _, want = ref.flash_attention_tf32x3(q, k, v, causal=causal, window=window,
+                                             return_lse=True)
+        torch.testing.assert_close(lse, want, rtol=2e-5, atol=2e-5)
+    _, want = ref.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-4)
+
+
+MMA_BWD_CASES = [
+    (2, 128, 8, 4, True, 0),       # the smoke configs: causal GQA 2:1, a grid split 4 or 8 ways
+    (1, 77, 4, 2, False, 0),       # non-causal, ragged S, split
+    (1, 200, 10, 2, True, 64),     # a window across tiles, GQA 5
+    (1, 300, 4, 1, False, 33),     # a window without causality, GQA 4, three key tiles
+    (2, 1, 4, 2, True, 0),         # one row
+    (2, 600, 16, 16, False, 0),    # HuBERT's heads: 160 CTAs, no split
+]
+
+
+@pytest.mark.parametrize("dtype,hd", MMA_BWD_TYPES)
+@pytest.mark.parametrize("b,s,nq,nkv,causal,window", MMA_BWD_CASES)
+def test_flash_bwd_mma_takes_the_forward_lse(cuda, dtype, hd, b, s, nq, nkv, causal, window):
+    """The mma backward with the lse its forward wrote, as training runs
+    it: within the tolerance of the plain FA2 equations (f32: also of
+    the split-TF32 walk it computes), and of itself given no lse."""
+    assert fa.bwd_route(dtype, hd) == "mma"
+    plan = fa.bwd_plan(dtype, b, s, nq, nkv, hd,
+                       torch.cuda.get_device_properties(0).multi_processor_count)
+    q, k, v, do = _bwd_inputs(cuda, b, s, nq, nkv, hd, dtype)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    n = fa.bwd_launches.value
+    got = fa.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, lse=lse)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches.value == n + 1
+    want = ref.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    _assert_bwd_close(got, want, dtype)
+    if dtype == torch.float32:
+        tiled = ref.flash_attention_bwd_tiled(q, k, v, o, do, lse, block_q=plan.block_q,
+                                              block_k=plan.block_k, causal=causal,
+                                              window=window, tf32x3=True)
+        _assert_bwd_close(got, tiled, dtype)
+    recomputed = fa.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    _assert_bwd_close(got, recomputed, dtype)
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 80), (torch.float32, 32)])
+@pytest.mark.parametrize("b,s,nq,nkv", [(2, 1024, 16, 16), (2, 128, 8, 4)])
+def test_flash_bwd_mma_two_calls_agree(cuda, dtype, hd, b, s, nq, nkv):
+    """dQ (and, where the grid is split, dK and dV) is summed with f32
+    atomics in no fixed order: two calls agree to the tolerance; unsplit,
+    dK and dV bit for bit."""
+    q, k, v, do = _bwd_inputs(cuda, b, s, nq, nkv, hd, dtype)
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    a = fa.flash_attention_bwd(q, k, v, o, do, causal=True, lse=lse)
+    c = fa.flash_attention_bwd(q, k, v, o, do, causal=True, lse=lse)
+    _assert_bwd_close(a, c, dtype)
+    plan = fa.bwd_plan(dtype, b, s, nq, nkv, hd,
+                       torch.cuda.get_device_properties(0).multi_processor_count)
+    if plan.splits == 1:
+        assert torch.equal(a[1], c[1]) and torch.equal(a[2], c[2])
 
 
 @pytest.mark.parametrize("hd", fa.WGMMA_HEAD_DIMS)
@@ -613,13 +691,14 @@ def test_flash_bwd_failure_raises_without_fallback(cuda, monkeypatch):
     def no_plain(*args, **kwargs):
         raise AssertionError("the plain version was called")
 
+    q, k, v, do = _bwd_inputs(cuda, 1, 64, 4, 2, 64, torch.bfloat16)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
     monkeypatch.setattr(build, "load", lambda name: FailingLib())
     monkeypatch.setitem(build._libs, "flash_attention_bwd", FailingLib())
     monkeypatch.setattr(ref, "flash_attention_bwd", no_plain)
-    q, k, v, do = _bwd_inputs(cuda, 1, 64, 4, 2, 64, torch.bfloat16)
     n = fa.bwd_launches.value
     with pytest.raises(RuntimeError, match="kernel launch failed"):
-        fa.flash_attention_bwd(q, k, v, q, do)
+        fa.flash_attention_bwd(q, k, v, o, do, lse=lse)
     assert fa.bwd_launches.value == n
 
 
