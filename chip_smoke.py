@@ -96,6 +96,20 @@ Phases, each printing one JSON line with its wall time:
                 expert weights' byte bound), then one batched decode step
                 with backend "cuda" against "ref" and three profiled
                 decode steps.
+  9. ep_full_width — the same model with its experts split over two ranks
+                that time-share the card (``models/moe_ep.py``: 64 experts
+                of every layer a rank, one all-reduce over the model axis;
+                gloo, since NCCL refuses two ranks on one device), held
+                against the dense path on the same seeded weights: a
+                prefill of 4 x 1024 tokens and 16 decode steps (logits,
+                first tokens, decode argmax, layer 0's MoE output, aux and
+                dropped pairs), with prefill and decode ms, the all-reduces
+                per forward and their ms, flash launches and memory per
+                rank;
+  10. dryrun  — ``repro_torch.launch.dryrun.run_one`` for five combos on
+                the 16x16 mesh and the pipeline dry-run's three stages, on
+                meta DTensors under a fake process group (the card unused):
+                every record "ok".
 Every JSON line is also written to ``chiprun_out/chip_smoke.jsonl``.
 With ``--against TREE`` (another commit's checkout, e.g. the parent
 unpacked with git archive) it runs none of the phases: it measures the
@@ -1649,6 +1663,373 @@ def phase_moe_full_width(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase ep_full_width: Qwen3-30B-A3B's experts split over two ranks
+# ---------------------------------------------------------------------------
+
+EP_RANKS = 2
+EP_BATCH, EP_PROMPT, EP_DECODE = 4, 1024, 16
+EP_MAX_SEQ = EP_PROMPT + EP_DECODE
+EP_SEED = 20
+EP_WARMUP = 16
+# layer 0's MoE output, expert-parallel against dense, on the same bf16
+# input: the same bf16 expert outputs added in other groupings (each
+# rank's partial sum rounds to bf16 before the all-reduce adds the two),
+# so held to the bf16 tolerance; its aux (f32, from the same counts and
+# gates, summed in another order) to 1e-5 relative
+EP_Y_TOL = 2e-2
+EP_AUX_RTOL = 1e-5
+# activations, KV cache, logits and the draw's temporaries of one rank,
+# beside its weights (phase moe_full_width's peak less its weights: 4.7 GB)
+EP_RANK_MARGIN = 5e9
+
+
+def ep_params(torch, cfg, e_lo: int, e_hi: int, seed: int = EP_SEED) -> dict:
+    """Qwen3-30B-A3B's parameters drawn on the card, holding only the
+    experts [e_lo, e_hi) of every layer: the embedding, final norm and LM
+    head from one generator, each layer's block from a generator of its
+    own seeded by the layer (its whole expert stack, (128, 2048, 768) a
+    leaf, is drawn and only the rows [e_lo, e_hi) kept), so every run
+    holds the same values for the experts it has and none holds another
+    run's experts."""
+    from repro_torch.models import layers as L
+    dev, d, V = "cuda", cfg.d_model, cfg.vocab_size
+    dtype = L.torch_dtype(cfg.dtype)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    emb = torch.empty((V, d), dtype=dtype, device=dev)
+    for lo in range(0, V, 1 << 14):
+        hi = min(lo + (1 << 14), V)
+        emb[lo:hi] = torch.randn((hi - lo, d), generator=g, device=dev) * 0.02
+    p = {"embed": emb, "final_ln": L.init_rmsnorm(d, dtype, dev),
+         "lm_head": L._dense_init(g, (d, V), d, dtype)}
+    blocks = None
+    for i in range(cfg.num_layers):
+        b = L.init_block(cfg, torch.Generator(device=dev).manual_seed(seed * 1000 + 1 + i))
+        for k in ("wg", "wu", "wd"):
+            b["moe"][k] = b["moe"][k][e_lo:e_hi]
+        if blocks is None:
+            blocks = L.tree_map(lambda a: torch.empty((cfg.num_layers, *a.shape), dtype=a.dtype,
+                                                      device=dev), b)
+        L._tree_zip(lambda dst, src: dst[i].copy_(src), blocks, b)
+        del b
+    p["blocks"] = blocks
+    return p
+
+
+def tap_first_moe(torch, store: dict):
+    """Records the first ``moe_forward`` call from now on (layer 0 of a
+    prefill): its output y and aux and the (token, expert) pairs it
+    dropped.  Returns a function that removes the tap."""
+    from repro_torch.models import moe
+    orig = moe.moe_forward
+
+    def first(cfg, p, x):
+        if "y" in store:
+            return orig(cfg, p, x)
+        run = moe.drop_counter
+        moe.drop_counter = torch.zeros((), dtype=torch.long, device=x.device)
+        try:
+            y, aux = orig(cfg, p, x)
+            store.update(x=x.float().cpu().numpy(), y=y.float().cpu().numpy(),
+                         aux=float(aux), drops=int(moe.drop_counter))
+            if run is not None:
+                run.add_(moe.drop_counter)
+        finally:
+            moe.drop_counter = run
+        return y, aux
+
+    moe.moe_forward = first
+    return lambda: setattr(moe, "moe_forward", orig)
+
+
+def ep_forward_run(torch, cfg, params, prompts, feed):
+    """The run both sides make: after a short warm-up prefill,
+    ``forward_prefill`` of the prompts (timed, layer 0's MoE tapped,
+    dropped pairs and flash launches counted), then
+    ``EP_DECODE`` steps of ``forward_decode`` fed ``feed`` (None: each
+    step's own greedy tokens).  Returns host numbers and the cache."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    tok = torch.as_tensor(prompts, device="cuda")
+    with torch.no_grad():               # warm-up: libraries, kernels, allocator
+        T.forward_prefill(cfg, params, tok[:, :EP_WARMUP], EP_MAX_SEQ)
+    layer0 = {}
+    untap = tap_first_moe(torch, layer0)
+    moe.drop_counter = torch.zeros((), dtype=torch.long, device="cuda")
+    fa.launches.reset()
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            logits, cache = T.forward_prefill(cfg, params, tok, EP_MAX_SEQ)
+            last = logits[:, -1].float()
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t)
+    finally:
+        untap()
+    flash = fa.launches.value
+    prefill_drops = int(moe.drop_counter)
+    del logits
+    nxt = last.argmax(-1)
+    tokens, step_logits, step_ms = [nxt.cpu().numpy()], [], []
+    for i in range(EP_DECODE):
+        inp = nxt if feed is None else torch.as_tensor(feed[:, i], device="cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            lg, cache = T.forward_decode(cfg, params, cache, inp[:, None], EP_PROMPT + i)
+        lg = lg[:, 0].float()
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+        nxt = lg.argmax(-1)
+        tokens.append(nxt.cpu().numpy())
+        step_logits.append(lg.cpu().numpy())
+    drops = int(moe.drop_counter)
+    moe.drop_counter = None
+    return {"last_logits": last.cpu().numpy(), "tokens": np.stack(tokens, 1),
+            "step_logits": np.stack(step_logits), "prefill_ms": prefill_ms,
+            "decode_ms_per_step": statistics.median(step_ms), "flash_launches": flash,
+            "prefill_drops": prefill_drops, "decode_drops": drops - prefill_drops,
+            "layer0": layer0}, cache
+
+
+def ep_rank(rank, world, store_path, prompts, feed, queue):
+    """One expert-parallel rank on cuda:0: gloo through a FileStore, a
+    (data 1, model ``world``) mesh, the experts [rank E / world, (rank + 1)
+    E / world) of every layer and a replicated copy of the rest; the dense
+    run's prefill and decode steps (fed its tokens) under
+    ``distribution(DistContext(mesh, moe_impl="ep"))``, then one prefill
+    and one decode step with every all-reduce timed.  Sends its numbers
+    through ``queue``."""
+    import datetime
+    import traceback
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank,
+                                world_size=world, timeout=datetime.timedelta(minutes=10))
+        from torch.distributed.device_mesh import init_device_mesh
+
+        from repro_torch.configs.base import get_config
+        from repro_torch.models import moe_ep
+        from repro_torch.models import transformer as T
+        from repro_torch.sharding.context import DistContext, distribution
+        cfg = get_config(MOE_ARCH)
+        e_loc = cfg.num_experts // world
+        mesh = init_device_mesh("cpu", (1, world), mesh_dim_names=("data", "model"))
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        params = ep_params(torch, cfg, rank * e_loc, (rank + 1) * e_loc)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t
+        param_bytes = sum(a.numel() * a.element_size() for a in _leaves(params))
+        with distribution(DistContext(mesh=mesh, moe_impl="ep")):
+            out, cache = ep_forward_run(torch, cfg, params, prompts, feed)
+            moe_ep.allreduce_log = []
+            with torch.no_grad():
+                T.forward_prefill(cfg, params, torch.as_tensor(prompts, device="cuda"),
+                                  EP_MAX_SEQ)
+                prefill_log, moe_ep.allreduce_log = moe_ep.allreduce_log, []
+                T.forward_decode(cfg, params, cache, torch.as_tensor(feed[:, -1:], device="cuda"),
+                                 EP_MAX_SEQ - 1)
+                decode_log = moe_ep.allreduce_log
+            moe_ep.allreduce_log = None
+        torch.cuda.synchronize()
+        out.update({"rank": rank, "experts": [rank * e_loc, (rank + 1) * e_loc],
+                    "draw_s": draw_s, "param_bytes": param_bytes,
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                    "allreduce_prefill": {"count": len(prefill_log),
+                                          "ms": 1e3 * sum(prefill_log)},
+                    "allreduce_decode": {"count": len(decode_log), "ms": 1e3 * sum(decode_log),
+                                         "ms_each": [1e3 * x for x in decode_log[:4]]}})
+        queue.put((rank, out))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()[-3000:]}))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_ep_ranks(prompts, feed, timeout=900):
+    """``ep_rank`` on ``EP_RANKS`` spawned processes; their numbers by
+    rank.  A rank that fails or outlives ``timeout`` fails the phase, and
+    every process is stopped before this returns."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import tempfile
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=ep_rank, args=(r, EP_RANKS, os.path.join(tmp, "store"),
+                                                   prompts, feed, q))
+                 for r in range(EP_RANKS)]
+        for p in procs:
+            p.start()
+        got = {}
+        deadline = time.monotonic() + timeout
+        try:
+            while len(got) < EP_RANKS:
+                try:
+                    rank, out = q.get(timeout=5)
+                except queue_mod.Empty:
+                    dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                    if dead or time.monotonic() > deadline:
+                        fail(f"ep_full_width: ranks exited {[p.exitcode for p in procs]} "
+                             f"or ran past {timeout} s")
+                    continue
+                if "error" in out:
+                    fail(f"ep_full_width: rank {rank} failed:\n{out['error']}")
+                got[rank] = out
+            for p in procs:
+                p.join(120)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    return got
+
+
+def phase_ep_full_width(torch):
+    """Qwen3-30B-A3B at its published width and depth, its 128 experts
+    split over two ranks that time-share the card (``models/moe_ep.py``:
+    each rank runs its 64 experts of every layer, one all-reduce over the
+    model axis combines them), held against the dense path on the same
+    weights: the dense run's prefill of 4 prompts of 1024 tokens and 16
+    greedy decode steps, then the same on the two ranks (fed the dense
+    run's tokens).  gloo carries the all-reduces (NCCL refuses two ranks
+    on one device), CUDA tensors through host memory."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    cfg = get_config(MOE_ARCH)
+    expert_bytes = cfg.num_layers * cfg.num_experts * 3 * cfg.d_model * cfg.d_ff * 2
+    param_bytes = cfg.param_count() * 2
+    prompts = np.random.default_rng(EP_SEED).integers(
+        0, cfg.vocab_size, (EP_BATCH, EP_PROMPT)).astype(np.int64)
+
+    _free(torch)
+    free, _ = torch.cuda.mem_get_info()
+    if free < param_bytes + EP_RANK_MARGIN:
+        fail(f"ep_full_width: {free / 1e9:.1f} GB free for the dense reference, it needs "
+             f"{(param_bytes + EP_RANK_MARGIN) / 1e9:.1f} GB (an earlier phase was not released)")
+    t = time.perf_counter()
+    params = ep_params(torch, cfg, 0, cfg.num_experts)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t
+    dense, cache = ep_forward_run(torch, cfg, params, prompts, None)
+    dense.update(draw_s=draw_s, max_memory_allocated=torch.cuda.max_memory_allocated())
+    del params, cache
+    _free(torch)
+
+    free, _ = torch.cuda.mem_get_info()
+    rank_bytes = (param_bytes - expert_bytes) + expert_bytes // EP_RANKS
+    need = EP_RANKS * (rank_bytes + EP_RANK_MARGIN)
+    if free < need:
+        fail(f"ep_full_width: {free / 1e9:.1f} GB free on the card, the {EP_RANKS} ranks need "
+             f"{need / 1e9:.1f} GB (the dense reference was not released)")
+    feed = dense["tokens"][:, :EP_DECODE]
+    t = time.perf_counter()
+    with GpuMemorySampler() as smi:
+        ranks = spawn_ep_ranks(prompts, feed)
+    ep_s = time.perf_counter() - t
+
+    # checks: rank 0's numbers (both ranks hold the combined outputs)
+    r0 = ranks[0]
+    scale = float(np.abs(dense["last_logits"]).max())
+    diff = float(np.abs(r0["last_logits"] - dense["last_logits"]).max())
+    first_equal = bool((r0["tokens"][:, 0] == dense["tokens"][:, 0]).all())
+    agree = float((r0["tokens"][:, 1:] == dense["tokens"][:, 1:]).mean())
+    l0d, l0e = dense["layer0"], r0["layer0"]
+    y_err = float(np.abs(l0e["y"] - l0d["y"]).max())
+    y_ok = bool((np.abs(l0e["y"] - l0d["y"]) <= EP_Y_TOL + EP_Y_TOL * np.abs(l0d["y"])).all())
+    aux_rel = abs(l0e["aux"] - l0d["aux"]) / abs(l0d["aux"])
+    l0_drops = sum(r["layer0"]["drops"] for r in ranks.values())
+    out = {"phase": "ep_full_width", "ranks": EP_RANKS, "mesh": {"data": 1, "model": EP_RANKS},
+           "backend": "gloo", "batch": EP_BATCH, "prompt": EP_PROMPT, "decode_steps": EP_DECODE,
+           "param_bytes": param_bytes, "expert_bytes": expert_bytes,
+           "rank_param_bytes": {r: v["param_bytes"] for r, v in ranks.items()},
+           "prefill_logits_max_abs_diff": diff, "prefill_logits_max_abs": scale,
+           "prefill_logits_rtol": FULL_WIDTH_LOGIT_RTOL, "first_tokens_equal": first_equal,
+           "prefill_top2_gap_dense": np.diff(np.sort(dense["last_logits"], -1)[:, -2:],
+                                             axis=-1)[:, 0].tolist(),
+           "decode_argmax_agree": agree,
+           "layer0": {"y_max_abs_err": y_err, "y_tol": EP_Y_TOL,
+                      "y_share_differing": float((l0e["y"] != l0d["y"]).mean()),
+                      "input_max_abs_diff": float(np.abs(l0e["x"] - l0d["x"]).max()),
+                      "aux_dense": l0d["aux"], "aux_ep": l0e["aux"], "aux_rel_err": aux_rel,
+                      "drops_dense": l0d["drops"],
+                      "drops_by_rank": {r: v["layer0"]["drops"] for r, v in ranks.items()}},
+           "dense": {k: dense[k] for k in ("draw_s", "prefill_ms", "decode_ms_per_step",
+                                           "flash_launches", "prefill_drops", "decode_drops",
+                                           "max_memory_allocated")},
+           "by_rank": {r: {k: v[k] for k in ("experts", "draw_s", "prefill_ms",
+                                             "decode_ms_per_step", "flash_launches",
+                                             "prefill_drops", "decode_drops",
+                                             "max_memory_allocated", "allreduce_prefill",
+                                             "allreduce_decode")}
+                       for r, v in ranks.items()},
+           "decode_logits_max_abs_diff": float(np.abs(r0["step_logits"]
+                                                      - dense["step_logits"]).max()),
+           "nvidia_smi_max_mib": max(smi.samples) if smi.samples else None,
+           "ep_seconds": ep_s}
+    failed = []
+    if not (diff <= FULL_WIDTH_LOGIT_RTOL * scale and np.isfinite(r0["last_logits"]).all()):
+        failed.append(f"prefill logits max |ep - dense| = {diff} > {FULL_WIDTH_LOGIT_RTOL} x "
+                      f"{scale}")
+    if not first_equal:
+        failed.append(f"first tokens differ: {r0['tokens'][:, 0]} vs {dense['tokens'][:, 0]}")
+    if agree < 0.99:
+        failed.append(f"decode argmax agreement {agree} < 0.99")
+    if not (y_ok and aux_rel <= EP_AUX_RTOL and l0_drops == l0d["drops"]):
+        failed.append(f"layer 0's MoE: {out['layer0']}")
+    if any(v["flash_launches"] != cfg.num_layers for v in ranks.values()):
+        failed.append(f"flash launches per rank {[v['flash_launches'] for v in ranks.values()]}"
+                      f" != {cfg.num_layers}")
+    if failed:
+        emit(out)
+        fail("ep_full_width: " + "; ".join(failed))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase dryrun: steps on meta DTensors for the production mesh
+# ---------------------------------------------------------------------------
+
+DRYRUN_COMBOS = (("qwen2_5_14b", "train_4k", "gspmd"),
+                 ("qwen3_moe_30b_a3b", "decode_32k", "ep"),
+                 ("qwen3_moe_30b_a3b", "decode_32k", "gspmd"),
+                 ("internlm2_1_8b", "prefill_32k", "gspmd"),
+                 ("falcon_mamba_7b", "decode_32k", "gspmd"))
+
+
+def phase_dryrun(torch):
+    """``repro_torch.launch.dryrun.run_one`` for ``DRYRUN_COMBOS`` on the
+    16x16 mesh and ``dryrun_pipeline``'s three stages, in this process
+    under a fake process group, on meta tensors: this machine's torch is
+    the one checked; the card is not used.  Every record must be "ok"."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import dryrun_pipeline as DP
+    recs = []
+    for arch, shape, moe_impl in DRYRUN_COMBOS:
+        rec = D.run_one(arch, shape, False, os.path.join(ROOT, "chiprun_out", "dryrun"),
+                        moe_impl=moe_impl)
+        if rec["status"] != "ok":
+            fail(f"dryrun: {arch} x {shape} ({moe_impl}): {rec.get('error')}\n"
+                 f"{rec.get('traceback')}")
+        recs.append({k: v for k, v in rec.items() if k != "traceback"})
+    stages = [DP.run_stage(i) for i in range(len(DP.STAGES))]
+    return {"phase": "dryrun", "torch": torch.__version__, "combos": recs, "pipeline": stages}
+
+
 def decode_step_check(torch, runner, prompts, what: str):
     """One batched decode step of a PagedRunner, kernel vs plain attention,
     on the same pool: each prompt but its last token is prefilled into
@@ -2706,6 +3087,16 @@ def main() -> int:
     moe["seconds"] = time.perf_counter() - t
     emit(moe)
 
+    t = time.perf_counter()
+    ep = phase_ep_full_width(torch)
+    ep["seconds"] = time.perf_counter() - t
+    emit(ep)
+
+    t = time.perf_counter()
+    dry = phase_dryrun(torch)
+    dry["seconds"] = time.perf_counter() - t
+    emit(dry)
+
     # launches of each kernel in the runs that use it, each counted from 0
     # (the decode child of pd_full_width counts its own and reports them)
     by_run = {"paged_attention": {"qwen_omni": launches["paged_attention"],
@@ -2716,7 +3107,10 @@ def main() -> int:
                                   "hybrid": hybrid["launches"],
                                   "train_full_width": train["launches"]["flash_attention"],
                                   "train_full_width.launcher":
-                                      train["launcher"]["flash_launches"]},
+                                      train["launcher"]["flash_launches"],
+                                  "ep_full_width.dense": ep["dense"]["flash_launches"],
+                                  **{f"ep_full_width.rank{r}": v["flash_launches"]
+                                     for r, v in ep["by_rank"].items()}},
               "flash_attention_bwd": {
                   "train_full_width": train["launches"]["flash_attention_bwd"],
                   "train_full_width.launcher": train["launcher"]["flash_bwd_launches"],

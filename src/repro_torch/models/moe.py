@@ -10,9 +10,11 @@ argsort of the flat expert ids (``jnp.argsort`` is stable), and top-k
 ties to the lower expert index (as ``jax.lax.top_k``).  The router and
 its softmax run in f32.
 
-The JAX package's expert-parallel path (``moe_ep.py``, an all-to-all
-under a sharding mesh) waits for the sharding slice of the port: with no
-mesh there, ``moe_forward`` is always this dense-dispatch formulation.
+Under a ``DistContext`` with ``moe_impl="ep"`` (``sharding/context.py``)
+``moe_forward`` hands over to ``moe_ep.py``: each rank of the model axis
+runs ``experts`` on its own slice of the experts, and one all-reduce
+combines them.  Otherwise it is this dense-dispatch formulation, on
+plain tensors or on DTensors.
 """
 from __future__ import annotations
 
@@ -54,49 +56,84 @@ def top_k(gates: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def bincount(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=n)`` for ids in [0, n), as a
+    scatter-add of ones: the same integers, with a fixed output size, so
+    that it also runs on meta tensors (the dry-run)."""
+    return torch.zeros(n, dtype=torch.long, device=ids.device).scatter_add(
+        0, ids, torch.ones_like(ids))
+
+
+def route(router: torch.Tensor, xf: torch.Tensor, k: int):
+    """The router in f32: (gates (T, E), top-k weights renormalised (T, k),
+    top-k expert ids (T, k))."""
+    logits = matmul(xf.float(), router)                    # (T, E), f32
+    gates = torch.softmax(logits, dim=-1)
+    topw, topi = top_k(gates, k)                           # (T, k)
+    return gates, topw / topw.sum(dim=-1, keepdim=True), topi
+
+
+def experts(xf: torch.Tensor, topw: torch.Tensor, topi: torch.Tensor, wg: torch.Tensor,
+            wu: torch.Tensor, wd: torch.Tensor, e_lo: int, C: int, partial: bool = False):
+    """The (token, expert) pairs of the experts [e_lo, e_lo + E_loc) held in
+    ``wg``/``wu``/``wd`` (E_loc = wg.shape[0]; all of them in the dense
+    path), each expert over C slots: (y (T, d), the pairs routed to each
+    of those experts (E_loc,)).  Pairs of other experts sort last (id
+    E_loc) and give nothing to y.  ``partial``: y is one rank's share of
+    the combine, summed in f32 and not rounded to the activations' type
+    (another rank's share is added to it first)."""
+    T, d = xf.shape
+    k = topi.shape[-1]
+    E_loc = wg.shape[0]
+
+    # ---- sort-based dispatch -------------------------------------------
+    local = (topi >= e_lo) & (topi < e_lo + E_loc)
+    e_flat = torch.where(local, topi - e_lo, E_loc).reshape(T * k)
+    sort_idx = torch.argsort(e_flat, stable=True)          # (T*k,)
+    e_sorted = e_flat[sort_idx]
+    counts = bincount(e_flat, E_loc + 1)                   # (E_loc + 1,)
+    offsets = torch.cumsum(counts, 0) - counts             # exclusive
+    pos_in_e = torch.arange(T * k, device=xf.device) - offsets[e_sorted]
+    tok = sort_idx // k                                    # source token id
+    mine = e_sorted < E_loc
+    keep = mine & (pos_in_e < C)
+    if drop_counter is not None:
+        drop_counter.add_((mine & ~keep).sum())
+
+    # scatter into the (E_loc, C, d) compute buffer: a dropped pair's row
+    # goes to one spare row past the buffer, which nothing reads (the JAX
+    # package writes it out of bounds with mode="drop")
+    row = torch.where(keep, e_sorted * C + pos_in_e, E_loc * C)
+    buf = xf.new_zeros((E_loc * C + 1, d))
+    buf[row] = xf[tok]
+    buf = buf[:E_loc * C].view(E_loc, C, d)
+
+    # ---- expert compute (batched products over the expert axis) --------
+    h = F.silu(matmul(buf, wg)) * matmul(buf, wu)
+    y_buf = matmul(h, wd).reshape(E_loc * C, d)            # (E_loc*C, d)
+
+    # ---- gather back + combine ----------------------------------------
+    y_sorted = y_buf[torch.clamp(e_sorted, max=E_loc - 1) * C
+                     + torch.clamp(pos_in_e, max=C - 1)]
+    y_sorted = torch.where(keep[:, None], y_sorted, y_sorted.new_zeros(()))
+    y_flat = xf.new_empty((T * k, d))
+    y_flat[sort_idx] = y_sorted.to(xf.dtype)               # sort_idx is a permutation
+    y = y_flat.reshape(T, k, d) * topw[..., None].to(xf.dtype)
+    y = y.float().sum(dim=1) if partial else y.sum(dim=1)
+    return y, counts[:E_loc]
+
+
 def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor):
     """x: (B, S, d) -> (y (B, S, d), aux_loss scalar f32)."""
+    from repro_torch.models import moe_ep
+    if moe_ep.ep_applicable(cfg):
+        return moe_ep.moe_forward_ep(cfg, p, x)
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     T = B * S
-    C = capacity(T, cfg)
     xf = x.reshape(T, d)
-
-    logits = matmul(xf.float(), p["router"])               # (T, E), f32
-    gates = torch.softmax(logits, dim=-1)
-    topw, topi = top_k(gates, k)                           # (T, k)
-    topw = topw / topw.sum(dim=-1, keepdim=True)           # renormalize
-
-    # ---- sort-based dispatch -------------------------------------------
-    e_flat = topi.reshape(T * k)
-    sort_idx = torch.argsort(e_flat, stable=True)          # (T*k,)
-    e_sorted = e_flat[sort_idx]
-    counts = torch.bincount(e_flat, minlength=E)           # (E,)
-    offsets = torch.cumsum(counts, 0) - counts             # exclusive
-    pos_in_e = torch.arange(T * k, device=x.device) - offsets[e_sorted]
-    tok = sort_idx // k                                    # source token id
-    keep = pos_in_e < C
-    if drop_counter is not None:
-        drop_counter.add_((~keep).sum())
-
-    # scatter into the (E, C, d) compute buffer: a dropped pair's row goes
-    # to one spare row past the buffer, which nothing reads (the JAX
-    # package writes it out of bounds with mode="drop")
-    row = torch.where(keep, e_sorted * C + pos_in_e, E * C)
-    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
-    buf[row] = xf[tok]
-    buf = buf[:E * C].view(E, C, d)
-
-    # ---- expert compute (batched products over the expert axis) --------
-    h = F.silu(matmul(buf, p["wg"])) * matmul(buf, p["wu"])
-    y_buf = matmul(h, p["wd"]).reshape(E * C, d)           # (E*C, d)
-
-    # ---- gather back + combine ----------------------------------------
-    y_sorted = y_buf[e_sorted * C + torch.clamp(pos_in_e, max=C - 1)]
-    y_sorted = torch.where(keep[:, None], y_sorted, y_sorted.new_zeros(()))
-    y_flat = torch.empty((T * k, d), dtype=x.dtype, device=x.device)
-    y_flat[sort_idx] = y_sorted.to(x.dtype)                # sort_idx is a permutation
-    y = (y_flat.reshape(T, k, d) * topw[..., None].to(x.dtype)).sum(dim=1)
+    gates, topw, topi = route(p["router"], xf, k)
+    y, counts = experts(xf, topw, topi, p["wg"], p["wu"], p["wd"], 0, capacity(T, cfg))
 
     # ---- load-balance aux loss (Switch-style) --------------------------
     frac = counts.float() / (T * k)                        # dispatch fraction

@@ -3,7 +3,9 @@ JAX, ml_dtypes or anything of the JAX package ``repro``.
 
 Checked twice: by importing every module of ``repro_torch`` in a fresh
 interpreter (this test process has JAX loaded by conftest), and by
-reading every import statement of the port and of chip_smoke.py.
+reading every import statement of the port and of chip_smoke.py.  And
+every module of the JAX package has its counterpart in the port, under
+the same path.
 """
 import ast
 import os
@@ -30,7 +32,10 @@ def _modules():
 def test_importing_the_port_loads_no_jax():
     mods = list(_modules())
     assert {"repro_torch.kernels.paged_attention", "repro_torch.kernels.flash_attention",
-            "repro_torch.kernels.mamba_scan", "repro_torch.models.mamba"} <= set(mods)
+            "repro_torch.kernels.mamba_scan", "repro_torch.models.mamba",
+            "repro_torch.sharding.context", "repro_torch.sharding.specs",
+            "repro_torch.launch.mesh", "repro_torch.models.moe_ep",
+            "repro_torch.launch.dryrun", "repro_torch.launch.dryrun_pipeline"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -57,3 +62,19 @@ def test_no_forbidden_import_statement(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
+
+
+# what the port has beside the JAX package's modules: the weight converter,
+# the device rule, the connector's tree codec and the kernels' build
+PORT_EXTRAS = {"convert.py", "device.py", "connector/tree.py", "kernels/build.py"}
+
+
+def _py_files(root: pathlib.Path) -> set:
+    return {str(p.relative_to(root)) for p in root.rglob("*.py")
+            if p.name != "__init__.py" and "csrc" not in p.parts}
+
+
+def test_every_module_of_the_jax_package_has_its_counterpart():
+    jax_mods, port_mods = _py_files(REPO / "src" / "repro"), _py_files(PORT)
+    assert sorted(jax_mods - port_mods) == []
+    assert sorted(port_mods - jax_mods - PORT_EXTRAS) == []
