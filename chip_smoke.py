@@ -69,10 +69,13 @@ Phases, each printing one JSON line with its wall time:
                 decode steps under the profiler;
   7. hybrid   — Zamba2-2.7B at its published width and depth (54 Mamba2
                 layers, the shared attention after every sixth) served
-                the same way (4 requests, 16 greedy tokens, flash launches
-                counted), then one whole-prompt prefill (the shortest
-                prompt: the plain Mamba2 scan launches per step) under the
-                profiler;
+                the same way (4 requests of 512-1000 tokens, 16 greedy
+                tokens, flash launches counted; prompts prefill through
+                the chunked Mamba2 scan, decode steps step by step), then
+                the longest prompt prefilled in f32 through the chunked
+                scan and through the step-by-step one (logits and final
+                SSM state held to each other, both timed) and once more
+                under the profiler;
   7b. train_full_width — InternLM2-1.8B (bf16, batch 4 x 2048 tokens)
                 and HuBERT-XLarge (bf16 weights, batch 4 x 1000 f32
                 frames, which make its activations f32 as jnp promotes)
@@ -107,9 +110,11 @@ Phases, each printing one JSON line with its wall time:
                 per forward and their ms, flash launches and memory per
                 rank;
   10. dryrun  — ``repro_torch.launch.dryrun.run_one`` for five combos on
-                the 16x16 mesh and the pipeline dry-run's three stages, on
-                meta DTensors under a fake process group (the card unused):
-                every record "ok".
+                the 16x16 mesh, one on 2x16x16, and the pipeline dry-run's
+                three stages, on meta DTensors under a fake process group
+                (the card unused): every record "ok", none with an op run
+                on replicated operands, two combos' collective bytes equal
+                to torch 2.13's (each record's ops printed).
 Every JSON line is also written to ``chiprun_out/chip_smoke.jsonl``.
 With ``--against TREE`` (another commit's checkout, e.g. the parent
 unpacked with git archive) it runs none of the phases: it measures the
@@ -711,6 +716,10 @@ def phase_kernels(torch, F):
                                 causal=False, seed=s + 10))
     flash.append(flash_lse_case(torch, F, timer, "smoke train forward f32 causal", B=2, S=128,
                                 nq=8, nkv=4, hd=32, dtype="float32", seed=s + 9))
+    # Qwen3-30B-A3B's prefill of 4 x 1024 tokens in phase ep_full_width
+    flash.append(flash_case(torch, F, timer, "qwen3-30b-a3b ep prefill bf16 causal", B=4,
+                            sq=1024, sk=1024, nq=32, nkv=4, hd=128, dtype="bfloat16",
+                            causal=True, seed=s + 11))
     # the monolithic baseline's Thinker prefill: one request of 23 tokens
     flash.append(flash_case(torch, F, timer, "monolithic prefill f32 causal", B=1, sq=23,
                             sk=23, nq=4, nkv=2, hd=32, dtype="float32", causal=True,
@@ -2004,27 +2013,49 @@ def phase_ep_full_width(torch):
 # phase dryrun: steps on meta DTensors for the production mesh
 # ---------------------------------------------------------------------------
 
-DRYRUN_COMBOS = (("qwen2_5_14b", "train_4k", "gspmd"),
-                 ("qwen3_moe_30b_a3b", "decode_32k", "ep"),
-                 ("qwen3_moe_30b_a3b", "decode_32k", "gspmd"),
-                 ("internlm2_1_8b", "prefill_32k", "gspmd"),
-                 ("falcon_mamba_7b", "decode_32k", "gspmd"))
+DRYRUN_COMBOS = (("qwen2_5_14b", "train_4k", "gspmd", False),
+                 ("qwen3_moe_30b_a3b", "decode_32k", "ep", False),
+                 ("qwen3_moe_30b_a3b", "decode_32k", "gspmd", False),
+                 ("internlm2_1_8b", "prefill_32k", "gspmd", False),
+                 ("falcon_mamba_7b", "decode_32k", "gspmd", False),
+                 ("qwen2_5_14b", "decode_32k", "gspmd", True))
+
+#: collective bytes a device of two combos at 16x16, as the same code
+#: counts them with torch 2.13 on the CPU: the dry-run's placements must
+#: not move with the torch version
+DRYRUN_TORCH_2_13 = {("qwen2_5_14b", "train_4k"): 599610703892,
+                     ("internlm2_1_8b", "prefill_32k"): 45365592064}
 
 
 def phase_dryrun(torch):
     """``repro_torch.launch.dryrun.run_one`` for ``DRYRUN_COMBOS`` on the
-    16x16 mesh and ``dryrun_pipeline``'s three stages, in this process
-    under a fake process group, on meta tensors: this machine's torch is
-    the one checked; the card is not used.  Every record must be "ok"."""
+    16x16 mesh (one on 2x16x16) and ``dryrun_pipeline``'s three stages,
+    in this process under a fake process group, on meta tensors: this
+    machine's torch is the one checked; the card is not used.  Every
+    record must be "ok", no op may run on replicated operands, and the
+    combos of ``DRYRUN_TORCH_2_13`` must count torch 2.13's bytes."""
     from repro_torch.launch import dryrun as D
     from repro_torch.launch import dryrun_pipeline as DP
     recs = []
-    for arch, shape, moe_impl in DRYRUN_COMBOS:
-        rec = D.run_one(arch, shape, False, os.path.join(ROOT, "chiprun_out", "dryrun"),
+    for arch, shape, moe_impl, multi_pod in DRYRUN_COMBOS:
+        rec = D.run_one(arch, shape, multi_pod, os.path.join(ROOT, "chiprun_out", "dryrun"),
                         moe_impl=moe_impl)
         if rec["status"] != "ok":
             fail(f"dryrun: {arch} x {shape} ({moe_impl}): {rec.get('error')}\n"
                  f"{rec.get('traceback')}")
+        print(f"dryrun {arch} x {shape} {rec['mesh']} ({moe_impl}): collective bytes "
+              f"{rec['collective_bytes'].get('total', 0)}, replicated_ops "
+              f"{rec['replicated_ops']}, resharded_ops {rec['resharded_ops']}", flush=True)
+        if rec["replicated_ops"]:
+            fail(f"dryrun: {arch} x {shape}: ops ran replicated: {rec['replicated_ops']}")
+        want = DRYRUN_TORCH_2_13.get((arch, shape)) if not multi_pod else None
+        if want is not None:
+            got = rec["collective_bytes"]["total"]
+            rec["collective_bytes_torch_2_13"] = want
+            print(f"dryrun {arch} x {shape}: {got} collective bytes with torch "
+                  f"{torch.__version__}, {want} with torch 2.13", flush=True)
+            if got != want:
+                fail(f"dryrun: {arch} x {shape}: the collective bytes moved with torch")
         recs.append({k: v for k, v in rec.items() if k != "traceback"})
     stages = [DP.run_stage(i) for i in range(len(DP.STAGES))]
     return {"phase": "dryrun", "torch": torch.__version__, "combos": recs, "pipeline": stages}
@@ -2659,7 +2690,7 @@ def phase_ssm_full_width(torch):
     _, busy = device_profile(torch, lambda: [runner.decode(embeds, None, positions, active)
                                              for _ in range(3)])
     ops.set_backend("auto")
-    out["prefill_profile"] = profiled_prefill(torch, runner, cfg, reqs, longest=True)
+    out["prefill_profile"] = profiled_prefill(torch, runner, cfg, reqs)
     out.update({"prefill_check_prompt_len": len(prompt),
                 "prefill_logits_max_abs_diff": lg_diff, "prefill_logits_max_abs": lg_scale,
                 "prefill_ssm_h_max_abs_diff": h_diff, "prefill_ssm_h_max_abs": h_scale,
@@ -2672,29 +2703,63 @@ def phase_ssm_full_width(torch):
 
 
 def phase_hybrid(torch):
-    """Zamba2-2.7B at its published width and depth: Mamba2 layers (plain
-    scan, as in the JAX package) and the shared attention (flash kernel,
-    hd 80) after every sixth layer."""
+    """Zamba2-2.7B at its published width and depth: Mamba2 layers (the
+    chunked scan, ``ref.mamba2_scan_chunked``, above 64 tokens, as
+    ``ops.mamba2_scan`` routes it; step by step in decode) and the shared
+    attention (flash kernel, hd 80) after every sixth layer.  The longest
+    served prompt is prefilled once more through the chunked scan and
+    once through the step-by-step ``ref.mamba2_scan`` (the JAX package's
+    scan), f32 each: logits and final SSM state held to each other at
+    ``PREFILL_LOGIT_RTOL`` of their scale, each prefill timed."""
+    from repro_torch.engine.runner import _prefill_from_embeds
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
     out, ctx = serve_state_arch(torch, "zamba2_2_7b", n_requests=4, max_new=16,
-                                lens_range=(128, 512), max_batch=4, max_seq=1024,
+                                lens_range=(512, 1000), max_batch=4, max_seq=1024,
                                 counter=fa.launches)
+    runner, reqs, cfg = ctx["runner"], ctx["reqs"], ctx["cfg"]
     out["phase"] = "hybrid"
-    out["prefill_profile"] = profiled_prefill(torch, ctx["runner"], ctx["cfg"], ctx["reqs"],
-                                              longest=False)
+    prompt = max((r.inputs["tokens"] for r in reqs), key=len)
+    emb = torch.as_tensor(runner.embed(prompt), device="cuda")[None]
+    res, chunk = {}, ops.MAMBA2_CHUNK
+    ops.set_backend("cuda")
+    try:
+        with torch.no_grad():
+            for scan, limit in (("chunked", chunk), ("step", len(prompt))):
+                ops.MAMBA2_CHUNK = limit             # "step": no prompt exceeds it
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits, cache1 = _prefill_from_embeds(cfg, runner.params, emb,
+                                                      runner.kv.max_seq)
+                torch.cuda.synchronize()
+                res[scan] = (logits[0, -1].float(), cache1["ssm_h"], time.perf_counter() - t)
+    finally:
+        ops.MAMBA2_CHUNK = chunk
+        ops.set_backend("auto")
+    lg_diff = float((res["chunked"][0] - res["step"][0]).abs().max())
+    lg_scale = float(res["step"][0].abs().max())
+    h_diff = float((res["chunked"][1] - res["step"][1]).abs().max())
+    h_scale = float(res["step"][1].abs().max())
+    if not (lg_diff <= PREFILL_LOGIT_RTOL * lg_scale and h_diff <= PREFILL_LOGIT_RTOL * h_scale
+            and torch.isfinite(res["chunked"][0]).all()):
+        fail(f"zamba2 prefill: |chunked - step| logits {lg_diff} (scale {lg_scale}), "
+             f"ssm_h {h_diff} (scale {h_scale}) > {PREFILL_LOGIT_RTOL} of the scale")
+    out.update({"scan_check_prompt_len": len(prompt),
+                "prefill_chunked_s": res["chunked"][2], "prefill_step_s": res["step"][2],
+                "prefill_logits_max_abs_diff": lg_diff, "prefill_logits_max_abs": lg_scale,
+                "prefill_ssm_h_max_abs_diff": h_diff, "prefill_ssm_h_max_abs": h_scale,
+                "prefill_rtol": PREFILL_LOGIT_RTOL})
+    out["prefill_profile"] = profiled_prefill(torch, runner, cfg, reqs)
     return out
 
 
-def profiled_prefill(torch, runner, cfg, reqs, *, longest):
-    """One whole-prompt prefill (backend "cuda", after the served run has
-    warmed everything up) under the profiler: the prefill's device ms and
-    the port's kernels' share of it.  The longest served prompt, or the
-    shortest where the plain Mamba2 scan's launches per step make the
-    profile long."""
+def profiled_prefill(torch, runner, cfg, reqs):
+    """The longest served prompt's whole-prompt prefill (backend "cuda",
+    after the served run has warmed everything up) under the profiler:
+    the prefill's device ms and the port's kernels' share of it."""
     from repro_torch.engine.runner import _prefill_from_embeds
     from repro_torch.kernels import ops
-    pick = max if longest else min
-    prompt = pick((r.inputs["tokens"] for r in reqs), key=len)
+    prompt = max((r.inputs["tokens"] for r in reqs), key=len)
     emb = torch.as_tensor(runner.embed(prompt), device="cuda")[None]
     ops.set_backend("cuda")
     with torch.no_grad():

@@ -121,6 +121,14 @@ def mamba1_scan(x, dt, A, B, C, D, h0=None, *, backend=None):
     return ref.mamba1_scan(x, dt, A, B, C, D, h0)
 
 
+#: ``mamba2_scan`` takes the chunked form for sequences longer than this
+MAMBA2_CHUNK = 64
+
+
 def mamba2_scan(x, dt, A, B, C, D, h0=None, *, backend=None):
-    # no kernel in either package: the JAX package runs its jnp oracle too
+    # no kernel in either package (the JAX package runs its jnp oracle):
+    # a sequence longer than one chunk goes by chunks on every device, a
+    # shorter one (every decode step) step by step
+    if x.shape[1] > MAMBA2_CHUNK:
+        return ref.mamba2_scan_chunked(x, dt, A, B, C, D, h0, chunk=MAMBA2_CHUNK)
     return ref.mamba2_scan(x, dt, A, B, C, D, h0)

@@ -6,7 +6,8 @@ them against the JAX package's oracles, and ``chip_smoke.py`` holds each
 CUDA kernel against them on the card.  On a CPU tensor the kernel
 wrappers run these functions; on the card nothing on the serving or
 training path uses them unless the backend is set to ``"ref"``
-(``mamba2_scan`` is the exception: it has no kernel in either package).
+(``mamba2_scan`` is the exception: it has no kernel in either package,
+and ``ops.mamba2_scan`` runs ``mamba2_scan_chunked`` above 64 steps).
 ``flash_attention_bwd`` is the plain version of the attention backward
 kernel; the CPU's training path differentiates ``flash_attention`` with
 autograd instead.
@@ -14,7 +15,8 @@ autograd instead.
 Attention uses grouped (GQA) einsums: K/V are never repeated to
 ``num_heads``.  Masked scores take the finite ``-2**30``, so a row with
 every key masked averages V instead of giving NaN.  The scans run a
-sequential loop over S in f32, as the JAX oracles' ``lax.scan`` does.
+sequential loop over S in f32, as the JAX oracles' ``lax.scan`` does;
+the ``*_chunked`` forms compute the same scans by chunks.
 """
 from __future__ import annotations
 
@@ -479,3 +481,72 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Ten
         ys.append(torch.einsum("bhpn,bn->bhp", h, Cf[:, t]))
     y = torch.stack(ys, 1) + xf * D.float()[None, None, :, None]
     return y.to(x.dtype), h
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """(..., T) -> (..., T, T): out[i, j] = a[j+1] + ... + a[i] for j <= i
+    (0 on the diagonal), -inf above it.  Summed along each column, not as
+    a difference of two running sums, so no long sum is subtracted from
+    another; -inf is set before any ``exp``, whose gradient is then 0."""
+    t = a.shape[-1]
+    ones = torch.ones((t, t), dtype=torch.bool, device=a.device)
+    strict, lower = torch.tril(ones, -1), torch.tril(ones)
+    rows = a[..., :, None].expand(*a.shape, t)                # rows[i, j] = a[i]
+    sums = torch.cumsum(torch.where(strict, rows, 0.0), dim=-2)
+    return torch.where(lower, sums, float("-inf"))
+
+
+def mamba2_scan_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                        B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                        h0: torch.Tensor | None = None, chunk: int = 64):
+    """``mamba2_scan`` by chunks of ``chunk`` steps, in the state-space
+    duality form (Mamba2, arXiv:2405.21060 sec. 6): the same function as
+    the step-by-step scan, summed in another order, in f32.
+
+    S is padded to whole chunks with zero steps (a = dt A = 0 keeps the
+    state, dt x = 0 adds nothing).  Per head a = dt A <= 0.  Inside a
+    chunk, y_t gets sum_{s<=t} exp(a_{s+1} + ... + a_t) (C_t . B_s) dt_s x_s
+    as two batched products over a (chunk x chunk) decay matrix; each
+    chunk's own end state is sum_s exp(a_{s+1} + ... + a_end) dt_s x_s B_s.
+    The states at the chunks' starts come from one product over an
+    (nc + 1) x (nc + 1) decay matrix of the chunks' summed a (a segment
+    sum, with h0 as chunk -1), and y_t gets exp(a_1 + ... + a_t) C_t .
+    start, then x D.  The last start is h_last: exact for a ragged S,
+    the padded steps changing nothing.  Shapes and returns as
+    ``mamba2_scan``.
+    """
+    bt, s, nh, hp = x.shape
+    n = B.shape[-1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+
+    def chunks(t):      # (Bt, S, ...) f32 -> (Bt, nc, chunk, ...), zero-padded
+        t = t.float()
+        if pad:
+            t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(bt, nc, chunk, *t.shape[2:])
+
+    xf, dtf, Bf, Cf = chunks(x), chunks(dt), chunks(B), chunks(C)
+    a = (dtf * A.float()).transpose(2, 3)                     # (Bt, nc, nh, chunk)
+    u = dtf[..., None] * xf                                   # (Bt, nc, chunk, nh, hp)
+    # inside each chunk
+    decay = torch.exp(_segsum(a))                             # (Bt, nc, nh, t, s)
+    scores = torch.einsum("bctn,bcsn->bcts", Cf, Bf)          # shared by the heads
+    y = torch.einsum("bchts,bcshp->bcthp", decay * scores[:, :, None], u)
+    # each chunk's end state from a zero start
+    csum = torch.cumsum(a, dim=-1)                            # (Bt, nc, nh, chunk)
+    to_end = torch.exp(csum[..., -1:] - csum).transpose(2, 3)  # <= 1: csum only falls
+    ends = torch.einsum("bcshp,bcsn->bchpn", to_end[..., None] * u, Bf)
+    # the start of every chunk, and the final state: one segment sum over
+    # the chunks, h0 standing as the chunk before the first
+    first = (torch.zeros((bt, 1, nh, hp, n), dtype=torch.float32, device=x.device)
+             if h0 is None else h0.float()[:, None])
+    states = torch.cat([first, ends], dim=1)                  # (Bt, nc + 1, nh, hp, n)
+    totals = csum[..., -1].transpose(1, 2)                    # (Bt, nh, nc)
+    totals = torch.cat([torch.zeros_like(totals[..., :1]), totals], dim=-1)
+    across = torch.exp(_segsum(totals))                       # (Bt, nh, nc + 1, nc + 1)
+    starts = torch.einsum("bhcj,bjhpn->bchpn", across, states)
+    y_in = torch.einsum("bctn,bchpn->bcthp", Cf, starts[:, :nc])
+    y = y + y_in * torch.exp(csum).transpose(2, 3)[..., None]
+    y = y.reshape(bt, nc * chunk, nh, hp)[:, :s] + x.float() * D.float()[None, None, :, None]
+    return y.to(x.dtype), starts[:, nc]

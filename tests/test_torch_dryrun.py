@@ -3,8 +3,9 @@ DTensors under a fake process group.
 
   - ``run_one`` on a fake (2, 4) mesh at smoke configs records
     ``status: "ok"`` for a dense arch at train, prefill and decode, the MoE
-    at train with ``gspmd`` and ``ep``, the SSM and the hybrid at decode,
-    and HuBERT at train (its decode is skipped);
+    at train with ``gspmd`` and ``ep``, the SSM at decode, the hybrid at
+    train, prefill (the chunked Mamba2 scan) and decode, and HuBERT at
+    train (its decode is skipped);
   - ``argument_size_in_bytes`` equals, exactly, the local shard bytes that
     the JAX dry-run's fitted specs give on its ``eval_shape`` shapes
     (``repro.launch.dryrun`` imported in a subprocess: it forces 512 host
@@ -12,6 +13,9 @@ DTensors under a fake process group.
   - an expert-parallel prefill's all-reduce bytes are those of the code:
     per MoE layer y (T_loc x d x 4 bytes: the partial sums cross in f32),
     the expert counts (E x 4) and the aux's mean over the data axis (4);
+    per layer the partial sums of attention's row-sharded products (f32);
+    and the embedding's rows, looked up where the table's vocabulary
+    shard lies and summed over "model" (T_loc x d x 2, bf16);
   - the same train step on REAL DTensors on four ``gloo`` ranks of the CPU
     (f32, a (2, 2) mesh, ZeRO moments) gives the JAX package's unsharded
     ``make_train_step``: loss and grad norm within 2e-5 (f32, sums in
@@ -45,7 +49,8 @@ def _smoke(arch, shape, moe="gspmd"):
     ("qwen2_5_14b", "train_4k", "gspmd"), ("qwen2_5_14b", "prefill_32k", "gspmd"),
     ("qwen2_5_14b", "decode_32k", "gspmd"), ("qwen3_moe_30b_a3b", "train_4k", "gspmd"),
     ("qwen3_moe_30b_a3b", "train_4k", "ep"), ("falcon_mamba_7b", "decode_32k", "gspmd"),
-    ("zamba2_2_7b", "decode_32k", "gspmd"), ("hubert_xlarge", "train_4k", "gspmd")])
+    ("zamba2_2_7b", "decode_32k", "gspmd"), ("zamba2_2_7b", "train_4k", "gspmd"),
+    ("zamba2_2_7b", "prefill_32k", "gspmd"), ("hubert_xlarge", "train_4k", "gspmd")])
 def test_run_one_steps_on_a_fake_mesh(arch, shape, moe):
     rec = _smoke(arch, shape, moe)
     assert rec["status"] == "ok", rec.get("traceback")
@@ -66,36 +71,52 @@ import jax
 import numpy as np
 from repro.configs.base import INPUT_SHAPES, get_config
 from repro.launch import dryrun as D
+from repro.launch.mesh import make_production_mesh
 mesh = jax.make_mesh((2, 4), ("data", "model"), devices=jax.devices()[:8])
 out = {}
 for combo in sys.argv[1].split(","):
-    arch, shape = combo.split(":")
-    cfg = get_config(arch, smoke=True)
-    fn, args = D.build_step(cfg, INPUT_SHAPES[shape], mesh)
+    arch, shape, *pod = combo.split(":")
+    cfg = get_config(arch, smoke=not pod)
+    fn, args = D.build_step(cfg, INPUT_SHAPES[shape],
+                            make_production_mesh(multi_pod=True) if pod else mesh)
     out[combo] = sum(int(np.prod(a.sharding.shard_shape(a.shape))) * a.dtype.itemsize
                      for a in jax.tree.leaves(args))
 print("BYTES" + json.dumps(out))
 """
 
+#: smoke configs on a (2, 4) mesh, and (":pod") one full config on the
+#: 2x16x16 mesh of 512 ranks
 _BYTE_COMBOS = ("qwen2_5_14b:train_4k", "qwen3_moe_30b_a3b:decode_32k",
                 "falcon_mamba_7b:decode_32k", "zamba2_2_7b:prefill_32k",
-                "hubert_xlarge:train_4k", "internlm2_1_8b:long_500k")
+                "hubert_xlarge:train_4k", "internlm2_1_8b:long_500k",
+                "qwen2_5_14b:decode_32k:pod")
+
+
+def _jax_subprocess(script, combos, tag):
+    """Run ``script`` (the JAX package, imported in a subprocess: its
+    dry-run module forces 512 host devices) on ``combos``; its JSON line."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    r = subprocess.run([sys.executable, "-c", script, ",".join(combos)],
+                       env=env, capture_output=True, text=True, timeout=300)
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith(tag)]
+    assert line, r.stdout + r.stderr
+    return json.loads(line[0][len(tag):])
 
 
 @pytest.fixture(scope="module")
 def jax_arg_bytes():
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu")
-    env.pop("XLA_FLAGS", None)
-    r = subprocess.run([sys.executable, "-c", _JAX_ARG_BYTES, ",".join(_BYTE_COMBOS)],
-                       env=env, capture_output=True, text=True, timeout=300)
-    line = [ln for ln in r.stdout.splitlines() if ln.startswith("BYTES")]
-    assert line, r.stdout + r.stderr
-    return json.loads(line[0][5:])
+    return _jax_subprocess(_JAX_ARG_BYTES, _BYTE_COMBOS, "BYTES")
 
 
 @pytest.mark.parametrize("combo", _BYTE_COMBOS)
 def test_argument_bytes_equal_the_jax_fitted_specs(combo, jax_arg_bytes):
-    arch, shape = combo.split(":")
+    arch, shape, *pod = combo.split(":")
+    if pod:
+        rec = D.run_one(arch, shape, True, "")
+        assert rec["status"] == "ok" and rec["mesh"] == "2x16x16", rec.get("traceback")
+        assert rec["argument_size_in_bytes"] == jax_arg_bytes[combo]
+        return
     from repro_torch.configs.base import INPUT_SHAPES
     with D.fake_world(8):
         from torch.distributed.device_mesh import init_device_mesh
@@ -104,14 +125,76 @@ def test_argument_bytes_equal_the_jax_fitted_specs(combo, jax_arg_bytes):
         assert D.local_bytes(args) == jax_arg_bytes[combo]
 
 
+# The JAX dry-run's collective count: ``collective_bytes`` of the
+# partitioned HLO that XLA compiles for a (2, 4) mesh.  Its axes are of
+# type Auto (GSPMD propagates the fitted specs), as ``jax.make_mesh`` made
+# them before jax 0.7; under the Explicit axes it makes now, the smoke
+# configs' embedding gather does not trace.
+_JAX_COLLECTIVES = r"""
+import json, sys
+import jax
+from repro.configs.base import INPUT_SHAPES, get_config, variant_for_shape
+from repro.launch import dryrun as D
+from repro.sharding.context import DistContext, distribution
+mesh = jax.make_mesh((2, 4), ("data", "model"), (jax.sharding.AxisType.Auto,) * 2,
+                     devices=jax.devices()[:8])
+out = {}
+for combo in sys.argv[1].split(","):
+    arch, shape = combo.split(":")
+    cfg = variant_for_shape(get_config(arch, smoke=True), INPUT_SHAPES[shape])
+    fn, args = D.build_step(cfg, INPUT_SHAPES[shape], mesh)
+    with distribution(DistContext(mesh=mesh, data_axes=("data",))), mesh:
+        out[combo] = D.collective_bytes(jax.jit(fn).lower(*args).compile().as_text())
+print("COLL" + json.dumps(out))
+"""
+
+_COLL_COMBOS = ("qwen2_5_14b:train_4k", "qwen2_5_14b:prefill_32k",
+                "internlm2_1_8b:prefill_32k", "qwen3_moe_30b_a3b:decode_32k",
+                "falcon_mamba_7b:decode_32k")
+#: the port's collective bytes a device over XLA's, on the smoke combos
+#: (measured 0.60-1.36 with torch 2.13; the JAX side moves bf16 data in
+#: f32 on the CPU, the port in bf16 where no partial sum is combined)
+COLLECTIVE_BAND = (0.5, 1.5)
+#: held differences (ROADMAP.md), each with its own measured band: the
+#: MoE's dense dispatch at decode, where XLA all-gathers the f32 updates
+#: of its scatter into the (E, C, d) expert buffer and the port gathers
+#: the bf16 token rows once before it (0.37 with torch 2.13)
+HELD_BANDS = {"qwen3_moe_30b_a3b:decode_32k": (0.3, 0.5)}
+
+
+@pytest.fixture(scope="module")
+def jax_collectives():
+    return _jax_subprocess(_JAX_COLLECTIVES, _COLL_COMBOS, "COLL")
+
+
+@pytest.mark.parametrize("combo", _COLL_COMBOS)
+def test_collective_bytes_lie_in_a_band_of_xlas(combo, jax_collectives):
+    """No op ran on replicated inputs, and the port's total collective
+    bytes a device lie within ``COLLECTIVE_BAND`` of the JAX dry-run's
+    (or within the combo's held band)."""
+    arch, shape = combo.split(":")
+    rec = _smoke(arch, shape)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["replicated_ops"] == {}
+    lo, hi = HELD_BANDS.get(combo, COLLECTIVE_BAND)
+    ratio = rec["collective_bytes"]["total"] / jax_collectives[combo]["total"]
+    assert lo <= ratio <= hi, (ratio, rec["collective_bytes"], jax_collectives[combo])
+
+
 def test_ep_prefill_all_reduce_bytes_are_the_codes():
     cfg = get_config("qwen3_moe_30b_a3b", smoke=True)
     rec = _smoke("qwen3_moe_30b_a3b", "prefill_32k", "ep")
     assert rec["status"] == "ok", rec.get("traceback")
     t_loc = 32 // 2 * 32768                       # B 32 over data 2, S 32768
-    per_layer = t_loc * cfg.d_model * 4 + cfg.num_experts * 4 + 4
-    assert rec["collective_bytes"]["all-reduce"] == cfg.num_layers * per_layer
-    assert rec["collective_calls"]["all-reduce"] == cfg.num_layers * 3
+    ep = t_loc * cfg.d_model * 4 + cfg.num_experts * 4 + 4
+    # attention's row-sharded products, summed in f32: the output
+    # projection, and K and V (2 KV heads do not divide "model" 4, so wk
+    # and wv are sharded on d_model)
+    attn = t_loc * (cfg.d_model + 2 * cfg.num_kv_heads * cfg.head_dim) * 4
+    embed = t_loc * cfg.d_model * 2               # the lookup's rows, summed in bf16
+    assert (rec["collective_bytes"]["all-reduce"]
+            == cfg.num_layers * (ep + attn) + embed)
+    assert rec["collective_calls"]["all-reduce"] == cfg.num_layers * 6 + 1
 
 
 def test_full_config_on_the_production_mesh():

@@ -1,5 +1,5 @@
 """Expert-parallel MoE of the port (``repro_torch/models/moe_ep.py``) on
-four ``gloo`` ranks of the CPU, f32, the smoke config of Qwen3-30B-A3B
+four ``gloo`` ranks of the CPU, f32 (and bf16, below), the smoke config of Qwen3-30B-A3B
 (4 experts, top-2), on the same numpy weights and tokens as:
 
   - the JAX package's EP path (``shard_map``), run in a subprocess with 4
@@ -13,6 +13,10 @@ four ``gloo`` ranks of the CPU, f32, the smoke config of Qwen3-30B-A3B
   - the port's dense path on a (1, 4) mesh at the default capacity: one
     data shard, so capacity and slot order are the dense path's: y within
     2e-5 and the dropped pairs, summed over the ranks, equal.
+
+The same in bf16 (weights and tokens; the router in f32): the JAX EP
+path within 2e-2 of y's scale (it psums y in bf16, rounding twice; the
+port rounds once), and on the (1, 4) mesh the dense path's y bit for bit.
 
 The DTensor call form (``local_map``) gives the plain call form's numbers
 bit for bit.  ``spawn_ranks`` (used by the other sharding tests too) runs
@@ -78,8 +82,8 @@ def spawn_ranks(target, world, tmp_path, *args, timeout=150):
             p.join()
 
 
-def _cfg(capacity_factor=None):
-    cfg = get_config(ARCH, smoke=True).replace(dtype="float32")
+def _cfg(capacity_factor=None, dtype="float32"):
+    cfg = get_config(ARCH, smoke=True).replace(dtype=dtype)
     return cfg if capacity_factor is None else cfg.replace(capacity_factor=capacity_factor)
 
 
@@ -97,16 +101,25 @@ def _data(seed=0) -> dict:
             "x": x}
 
 
-def _ep_rank(rank, world, data_path, out_dir):
+def _tensors(data_path, dtype):
+    """The weights and tokens in ``dtype``, the router in f32 (as
+    ``init_moe`` keeps it)."""
+    dt = getattr(torch, dtype)
+    return {k: torch.from_numpy(v).float().to(torch.float32 if k == "router" else dt)
+            for k, v in np.load(data_path).items()}
+
+
+def _ep_rank(rank, world, data_path, out_dir, dtype="float32", meshes=tuple(MESHES)):
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import distribute_tensor
 
     from repro_torch.sharding import specs as S
-    d = {k: torch.from_numpy(v).float() for k, v in np.load(data_path).items()}
+    d = _tensors(data_path, dtype)
     p = {k: d[k] for k in ("router", "wg", "wu", "wd")}
     out = {}
-    for name, (shape, cf) in MESHES.items():
-        cfg = _cfg(cf)
+    for name in meshes:
+        shape, cf = MESHES[name]
+        cfg = _cfg(cf, dtype)
         mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
         e_loc, b_loc = cfg.num_experts // shape[1], B // shape[0]
         mr, dr = mesh.get_local_rank("model"), mesh.get_local_rank("data")
@@ -116,7 +129,7 @@ def _ep_rank(rank, world, data_path, out_dir):
         moe.drop_counter = torch.zeros((), dtype=torch.long)
         with distribution(DistContext(mesh=mesh, moe_impl="ep")):
             y, aux = moe.moe_forward(cfg, local, d["x"][dr * b_loc:(dr + 1) * b_loc])
-        out[f"{name}_y"], out[f"{name}_aux"] = y.numpy(), aux.numpy()
+        out[f"{name}_y"], out[f"{name}_aux"] = y.float().numpy(), aux.numpy()
         out[f"{name}_drops"] = moe.drop_counter.numpy()
         moe.drop_counter = None
         if name == "ep22":
@@ -126,7 +139,8 @@ def _ep_rank(rank, world, data_path, out_dir):
             dx = distribute_tensor(d["x"], mesh, S.placements(mesh, S.P("data", None, None)))
             with distribution(DistContext(mesh=mesh, moe_impl="ep")):
                 yd, auxd = moe.moe_forward(cfg, dp, dx)
-            out["dtensor_y"], out["dtensor_aux"] = yd.full_tensor().numpy(), auxd.full_tensor()
+            out["dtensor_y"] = yd.full_tensor().float().numpy()
+            out["dtensor_aux"] = auxd.full_tensor()
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
 
 
@@ -138,36 +152,48 @@ from repro.configs.base import get_config
 from repro.models import moe
 from repro.sharding.context import DistContext, distribution
 d = np.load(sys.argv[1])
-cfg = get_config("qwen3_moe_30b_a3b", smoke=True).replace(dtype="float32")
-p = {k: jnp.asarray(d[k], jnp.float32) for k in ("router", "wg", "wu", "wd")}
-x = jnp.asarray(d["x"], jnp.float32)
+dtype = sys.argv[3]
+cfg = get_config("qwen3_moe_30b_a3b", smoke=True).replace(dtype=dtype)
+dt = jnp.dtype(dtype)
+p = {k: jnp.asarray(d[k], jnp.float32).astype(jnp.float32 if k == "router" else dt)
+     for k in ("router", "wg", "wu", "wd")}
+x = jnp.asarray(d["x"], jnp.float32).astype(dt)
 mesh = jax.make_mesh((2, 2), ("data", "model"))
 with distribution(DistContext(mesh=mesh, moe_impl="ep")), mesh:
     y, aux = jax.jit(lambda p, x: moe.moe_forward(cfg, p, x))(p, x)
-np.savez(sys.argv[2], y=np.asarray(y), aux=np.asarray(aux))
+np.savez(sys.argv[2], y=np.asarray(y.astype(jnp.float32)), aux=np.asarray(aux))
 """
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("ep")
+def _run(tmp, dtype, meshes=tuple(MESHES)):
+    """The ranks and the JAX package's EP on the same data in ``dtype``."""
     data_path = str(tmp / "data.npz")
     np.savez(data_path, **_data())
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     jax_out = str(tmp / "jax.npz")
-    jax_run = subprocess.Popen([sys.executable, "-c", _JAX_EP, data_path, jax_out], env=env,
-                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    jax_run = subprocess.Popen([sys.executable, "-c", _JAX_EP, data_path, jax_out, dtype],
+                               env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                               text=True)
     try:
-        spawn_ranks(_ep_rank, 4, tmp, data_path, str(tmp))
+        spawn_ranks(_ep_rank, 4, tmp, data_path, str(tmp), dtype, meshes)
         log, _ = jax_run.communicate(timeout=300)
     finally:
         if jax_run.poll() is None:
             jax_run.kill()
     assert jax_run.returncode == 0, log
     ranks = [dict(np.load(str(tmp / f"rank{r}.npz"))) for r in range(4)]
-    return {"ranks": ranks, "jax": dict(np.load(jax_out)),
-            "data": {k: torch.from_numpy(v).float() for k, v in np.load(data_path).items()}}
+    return {"ranks": ranks, "jax": dict(np.load(jax_out)), "data": _tensors(data_path, dtype)}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return _run(tmp_path_factory.mktemp("ep"), "float32")
+
+
+@pytest.fixture(scope="module")
+def runs_bf16(tmp_path_factory):
+    return _run(tmp_path_factory.mktemp("ep_bf16"), "bfloat16", ("ep22", "ep14"))
 
 
 def _ep_y(ranks, name, shape):
@@ -177,12 +203,12 @@ def _ep_y(ranks, name, shape):
     return np.concatenate([ranks[dr * n_model][f"{name}_y"] for dr in range(n_data)])
 
 
-def _dense(data, capacity_factor=None):
+def _dense(data, capacity_factor=None, dtype="float32"):
     p = {k: data[k] for k in ("router", "wg", "wu", "wd")}
     moe.drop_counter = torch.zeros((), dtype=torch.long)
     try:
-        y, aux = moe.moe_forward(_cfg(capacity_factor), p, data["x"])
-        return y.numpy(), float(aux), int(moe.drop_counter)
+        y, aux = moe.moe_forward(_cfg(capacity_factor, dtype), p, data["x"])
+        return y.float().numpy(), float(aux), int(moe.drop_counter)
     finally:
         moe.drop_counter = None
 
@@ -211,6 +237,34 @@ def test_ep_on_one_data_shard_matches_the_dense_path_and_its_drops(runs):
     assert sum(int(r["ep14_drops"]) for r in ranks) == drops
     for r in ranks:
         np.testing.assert_allclose(r["ep14_y"], y, rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(r["ep14_aux"], aux, rtol=1e-6, atol=1e-6)
+
+
+def test_bf16_ep_matches_the_jax_ep_path_within_bf16(runs_bf16):
+    """bf16 weights and tokens: JAX psums y in bf16 (two roundings), the
+    port sums f32 partials and rounds once, so y agrees within the bf16
+    tolerance of tests/test_torch_moe.py, 2e-2 of its scale; the router
+    runs in f32 in both, so aux agrees as in f32."""
+    ranks, want = runs_bf16["ranks"], runs_bf16["jax"]["y"]
+    assert sum(int(r["ep22_drops"]) for r in ranks) > 0
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(_ep_y(ranks, "ep22", (2, 2)), want, rtol=0, atol=2e-2 * scale)
+    for r in ranks:
+        np.testing.assert_allclose(r["ep22_aux"], runs_bf16["jax"]["aux"], rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_bf16_ep_on_one_data_shard_equals_the_dense_path_bit_for_bit(runs_bf16):
+    """One data shard (the dense path's capacity and slot order), bf16:
+    each rank's partial y in f32, summed in f32 and rounded once, as the
+    dense combine rounds once, so y is the dense path's bit for bit; the
+    dropped pairs, summed over the ranks, are the dense path's."""
+    y, aux, drops = _dense(runs_bf16["data"], dtype="bfloat16")
+    ranks = runs_bf16["ranks"]
+    assert drops > 0
+    assert sum(int(r["ep14_drops"]) for r in ranks) == drops
+    for r in ranks:
+        np.testing.assert_array_equal(r["ep14_y"], y)
         np.testing.assert_allclose(r["ep14_aux"], aux, rtol=1e-6, atol=1e-6)
 
 
