@@ -4,7 +4,7 @@ SMOKE_DUMPS := BENCH_prefix_cache.json BENCH_online.json \
     BENCH_replicas.json BENCH_radix.json
 
 .PHONY: test test-fast lint analyze check serve-online bench-online \
-    bench-smoke bench-compare bench-trend
+    bench-smoke bench-compare bench-trend serve-online-torch examples-torch
 
 # default pre-commit check: repo-wide lint + invariant analyzer +
 # sub-minute smoke subset
@@ -32,6 +32,20 @@ test:
 serve-online:
 	$(PY) -m repro.launch.serve --pipeline qwen_omni --online \
 	    --requests 12 --rate 4.0 --max-inflight 8
+
+# the same on the PyTorch port (on the card; DEVICE=cpu for the CPU)
+DEVICE ?= cuda
+serve-online-torch:
+	$(PY) -m repro_torch.launch.serve --pipeline qwen_omni --online \
+	    --requests 12 --rate 4.0 --max-inflight 8 --device $(DEVICE)
+
+# the port's five examples (examples/*_torch.py)
+examples-torch:
+	$(PY) examples/quickstart_torch.py --device $(DEVICE)
+	$(PY) examples/image_generation_torch.py --device $(DEVICE)
+	$(PY) examples/omni_serving_torch.py --device $(DEVICE)
+	$(PY) examples/process_isolation_torch.py --device $(DEVICE)
+	$(PY) examples/train_tiny_torch.py --device $(DEVICE)
 
 # concurrent-stage vs lock-step comparison with a slowed stage
 bench-online:

@@ -114,7 +114,20 @@ Phases, each printing one JSON line with its wall time:
                 three stages, on meta DTensors under a fake process group
                 (the card unused): every record "ok", none with an op run
                 on replicated operands, two combos' collective bytes equal
-                to torch 2.13's (each record's ops printed).
+                to torch 2.13's (each record's ops printed);
+  11. examples — the five port examples (``examples/*_torch.py``)
+                through their ``run`` functions at their own settings:
+                every request finished, each kernel's launches counted;
+                omni_serving greedy with the kernels and with their plain
+                versions (tokens identical, the monolithic baseline's
+                text the pipeline's); process_isolation's two spawned
+                decode replicas against an all-thread run, then at
+                InternLM2-1.8B's published width and depth on phase 5b's
+                prompts (each child on the card with paged launches, no
+                replica failure, first tokens the all-thread run's);
+                train_tiny's 50 steps (the loss closing half its gap to
+                ln(vocab), flash launches per layer and step, the
+                checkpoint restored bit for bit).
 Every JSON line is also written to ``chiprun_out/chip_smoke.jsonl``.
 With ``--against TREE`` (another commit's checkout, e.g. the parent
 unpacked with git archive) it runs none of the phases: it measures the
@@ -2061,6 +2074,286 @@ def phase_dryrun(torch):
     return {"phase": "dryrun", "torch": torch.__version__, "combos": recs, "pipeline": stages}
 
 
+# ---------------------------------------------------------------------------
+# phase examples: the port's five examples (examples/*_torch.py) on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES_DIR = os.path.join(ROOT, "examples")
+EXAMPLE_NAMES = ("quickstart", "image_generation", "omni_serving", "process_isolation",
+                 "train_tiny")
+# the examples' process isolation once more at a published width: the
+# model and prompts of phase pd_full_width, two spawned decode replicas
+ISOLATION_ARCH = "internlm2_1_8b"
+ISOLATION_MAX_SEQ = 2048
+ISOLATION_NEW = 32
+TRAIN_TINY_STEPS = 50
+# the example's 50 steps close at least this share of the gap between the
+# first step's loss and ln(vocab), a uniform prediction's loss: what a
+# random init adds above it is what falls first (the JAX example's
+# 7.5072 -> 6.9930 closes 0.89 of it, the port's seeded init's 7.3496 ->
+# 6.9944 0.85, both in f32 on the CPU; ln 1024 = 6.9315)
+TRAIN_TINY_GAP = 0.5
+
+
+def load_example(name: str):
+    """``examples/<name>_torch.py`` as a module (examples/ is no package)."""
+    import importlib.util
+    path = os.path.join(EXAMPLES_DIR, f"{name}_torch.py")
+    spec = importlib.util.spec_from_file_location(f"example_{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def greedy_orchestrator(stages):
+    """The port's Orchestrator with the named AR stages' sampling made
+    greedy and the Talker's streamed chunks kept in each request's data."""
+    from repro_torch.core.orchestrator import Orchestrator
+    from repro_torch.engine.sampling import SamplingParams
+
+    class Greedy(Orchestrator):
+        def __init__(self, graph, engines, *a, **kw):
+            for name in stages:
+                n = engines[name].default_sampling.max_new_tokens
+                engines[name].default_sampling = SamplingParams(max_new_tokens=n,
+                                                                temperature=0.0)
+            tap_talker_tokens(graph)
+            super().__init__(graph, engines, *a, **kw)
+    return Greedy
+
+
+def check_finished(name: str, reqs, out_stage: str) -> None:
+    done = [r for r in reqs if r.completion_time is not None and not r.failed
+            and r.outputs.get(out_stage)]
+    if len(done) != len(reqs) or not reqs:
+        fail(f"examples {name}: {len(done)}/{len(reqs)} requests completed: "
+             f"{[r.failed for r in reqs if r.failed]}")
+
+
+def counted(torch, fn):
+    """fn() with every kernel's launches counted from 0 and its wall time:
+    (result, launches, seconds)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    counters = {"paged_attention": pa.launches, "flash_attention": fa.launches,
+                "flash_attention_bwd": fa.bwd_launches}
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.value for k, c in counters.items()}, time.perf_counter() - t0
+
+
+def isolation_run(torch, ex, label, **kw):
+    """process_isolation_torch's ``run`` on the card: its tokens, its
+    decode stage's request split and each child's device and launches."""
+    out, launches, seconds = counted(torch, lambda: ex.run("cuda", **kw))
+    reqs = out["requests"]
+    check_finished(label, reqs, "decode")
+    m = out["decode"]
+    children = [{"device": c.get("device"),
+                 "paged_launches": c.get("kernel_launches", {}).get("paged_attention", 0),
+                 "consumed": c.get("consumed"), "engine_steps": c.get("engine_steps"),
+                 "busy_s": c.get("busy_time")} for c in out["children"]]
+    return {"run": label, "seconds": seconds, "wall_s": out["wall"],
+            "jct_s": [r.jct for r in reqs], "finished": m["finished"],
+            "n_replicas": m["n_replicas"], "replica_failures": m["replica_failures"],
+            "split": {str(rid): row.get("finished") for rid, row in
+                      m.get("replicas", {}).items()},
+            "children": children, "launches": launches}, \
+        [[int(t) for t in r.outputs["decode"][0]["tokens"]] for r in reqs]
+
+
+def isolation_launches(label: str, runs: dict) -> dict:
+    """Each run's launches in this process, and each spawned child's own."""
+    out = {f"{label}.{run}": r["launches"] for run, r in runs.items()}
+    for i, c in enumerate(runs["spawned"]["children"]):
+        out[f"{label}.spawned.child{i}"] = {"paged_attention": c["paged_launches"]}
+    return out
+
+
+def phase_examples(torch):
+    """The five port examples through their entry functions on the card,
+    at their own settings (omni_serving greedy, so that the pipeline's text
+    and the monolithic baseline's can be held to each other), each
+    kernel's launches counted per example; then process_isolation's
+    function at InternLM2-1.8B's published width and depth with two
+    spawned decode replicas, against the same run with every stage a
+    thread."""
+    import numpy as np
+
+    from repro_torch.baselines import monolithic as mono_mod
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.train.optimizer import leaves
+
+    mods = {name: load_example(name) for name in EXAMPLE_NAMES}
+    out, launches = {"phase": "examples"}, {}
+
+    # quickstart: planner (hidden states) -> writer over the shm connector
+    qs, launches["quickstart"], secs = counted(torch, lambda: mods["quickstart"].run("cuda"))
+    check_finished("quickstart", qs["requests"], "writer")
+    if any(len(r.outputs["writer"][0]["tokens"]) != 16 for r in qs["requests"]):
+        fail("examples quickstart: a writer stream is not 16 tokens")
+    if launches["quickstart"]["paged_attention"] <= 0:
+        fail("examples quickstart: the paged kernel was not launched")
+    out["quickstart"] = {"seconds": secs, "jct_s": [r.jct for r in qs["requests"]],
+                         "connector_stats": qs["connector_stats"]}
+
+    # image_generation: AR -> DiT with TeaCache reuse
+    ig, launches["image_generation"], secs = counted(
+        torch, lambda: mods["image_generation"].run("cuda"))
+    check_finished("image_generation", ig["requests"], "glm_image_dit")
+    for r in ig["requests"]:
+        (img,) = r.outputs["glm_image_dit"]
+        lat = np.asarray(img["latent"])
+        if lat.shape != (64, 32) or not np.isfinite(lat).all():
+            fail(f"examples image_generation: latent {lat.shape}, finite "
+                 f"{np.isfinite(lat).all()}")
+    if min(launches["image_generation"][k] for k in ("paged_attention",
+                                                      "flash_attention")) <= 0:
+        fail(f"examples image_generation: launches {launches['image_generation']}")
+    out["image_generation"] = {"seconds": secs, "jct_s": [r.jct for r in ig["requests"]],
+                               "latent_std": [float(np.asarray(r.outputs["glm_image_dit"][0][
+                                   "latent"]).std()) for r in ig["requests"]]}
+
+    # omni_serving, greedy: the kernels' run against the plain versions', and
+    # the monolithic baseline's text against the pipeline's
+    omni_mod = mods["omni_serving"]
+    omni_mod.Orchestrator = greedy_orchestrator(("thinker", "talker"))
+    sample = mono_mod.sample_tokens
+    mono_mod.sample_tokens = lambda logits, t, k, gen=None: torch.argmax(
+        logits, dim=-1).to(torch.int32)
+    omni, streams = {}, {}
+    try:
+        for backend in ("cuda", "ref"):
+            ops.set_backend(backend)
+            res, n, secs = counted(torch, lambda: omni_mod.run(device="cuda"))
+            check_finished(f"omni_serving ({backend})", res["requests"], "vocoder")
+            streams[backend] = {
+                "pipeline": [(r.data["thinker_tokens"].tolist(), r.data["talker_chunks"])
+                             for r in res["requests"]],
+                "monolithic": [(m["text"].tolist(), m["codec"].tolist())
+                               for m in res["monolithic"]]}
+            omni[backend] = (res, n, secs)
+    finally:
+        ops.set_backend("auto")
+        mono_mod.sample_tokens = sample
+    res, launches["omni_serving"], secs = omni["cuda"]
+    for r in res["requests"]:
+        chunks = r.outputs["vocoder"]
+        frames = sum(np.asarray(c["latent"]).shape[0] for c in chunks)
+        if len(chunks) != 5 or frames != 80:
+            fail(f"examples omni_serving: {frames} frames in {len(chunks)} chunks")
+    if streams["cuda"] != streams["ref"]:
+        fail("examples omni_serving: greedy tokens differ between the kernels and the "
+             "plain versions")
+    texts = [t for t, _ in streams["cuda"]["pipeline"]]
+    if [t for t, _ in streams["cuda"]["monolithic"]] != texts or len(res["monolithic"]) != 8:
+        fail("examples omni_serving: the monolithic baseline's greedy text differs from "
+             "the pipeline's")
+    if min(launches["omni_serving"][k] for k in ("paged_attention", "flash_attention")) <= 0:
+        fail(f"examples omni_serving: launches {launches['omni_serving']}")
+    jct, jct_m = res["jct"], res["jct_monolithic"]
+    print(f"examples omni_serving: mean JCT {jct:.3f} s disaggregated, {jct_m:.3f} s "
+          f"monolithic", flush=True)
+    out["omni_serving"] = {"seconds": secs, "wall_s": res["wall"], "jct_mean_s": jct,
+                           "jct_monolithic_mean_s": jct_m,
+                           "jct_s": [r.jct for r in res["requests"]],
+                           "jct_monolithic_s": [m["jct"] for m in res["monolithic"]],
+                           "stage_busy_s": res["stage_busy"],
+                           "greedy_text_equal_monolithic": True,
+                           "greedy_tokens_equal_plain": True}
+
+    # process_isolation at its own settings: two spawned children on the
+    # card, then every stage a thread
+    ex = mods["process_isolation"]
+    runs, tokens = {}, {}
+    runs["spawned"], tokens["spawned"] = isolation_run(torch, ex, "process_isolation")
+    runs["threads"], tokens["threads"] = isolation_run(torch, ex, "process_isolation threads",
+                                                       spawn=False)
+    if tokens["spawned"] != tokens["threads"]:
+        fail(f"examples process_isolation: spawned {tokens['spawned']} against threads "
+             f"{tokens['threads']}")
+    launches.update(isolation_launches("process_isolation", runs))
+    out["process_isolation"] = runs
+
+    # the same at InternLM2-1.8B's width and depth on pd_full_width's prompts
+    _free(torch)
+    cfg = get_config(ISOLATION_ARCH)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(128, 1537, size=8)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32) for n in lens]
+    kw = dict(cfg=cfg, prompts=prompts, max_new=ISOLATION_NEW, max_seq=ISOLATION_MAX_SEQ)
+    full, ftokens = {}, {}
+    with GpuMemorySampler() as sampler:
+        full["spawned"], ftokens["spawned"] = isolation_run(
+            torch, ex, "process_isolation full width", **kw)
+    full["spawned"]["nvidia_smi_memory_used_mib_max"] = max(sampler.samples, default=None)
+    _free(torch)
+    full["threads"], ftokens["threads"] = isolation_run(
+        torch, ex, "process_isolation full width threads", spawn=False, **kw)
+    _free(torch)
+    sp = full["spawned"]
+    if sp["replica_failures"] or sp["n_replicas"] != 2 or sp["finished"] != len(prompts):
+        fail(f"examples process_isolation full width: finished {sp['finished']}, "
+             f"replicas {sp['n_replicas']}, failures {sp['replica_failures']}")
+    if len(sp["children"]) != 2 or any(not str(c["device"]).startswith("cuda")
+                                       or c["paged_launches"] <= 0 for c in sp["children"]):
+        fail(f"examples process_isolation full width: children {sp['children']}")
+    if [s[0] for s in ftokens["spawned"]] != [s[0] for s in ftokens["threads"]]:
+        fail("examples process_isolation full width: first tokens differ from the "
+             "all-thread run's")
+    if any(len(s) != ISOLATION_NEW for v in ftokens.values() for s in v):
+        fail("examples process_isolation full width: a stream is short")
+    same = sum(a == b for x, y in zip(ftokens["spawned"], ftokens["threads"])
+               for a, b in zip(x, y))
+    total = sum(len(x) for x in ftokens["threads"])
+    print(f"examples process_isolation full width: {same}/{total} greedy tokens equal "
+          f"to the all-thread run's (not held: bf16 batches differ)", flush=True)
+    launches.update(isolation_launches("process_isolation_full_width", full))
+    out["process_isolation_full_width"] = {
+        "arch": ISOLATION_ARCH, "source": cfg.source, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "dtype": cfg.dtype, "prompt_lens": [int(n) for n in lens],
+        "new_tokens": ISOLATION_NEW, "max_seq": ISOLATION_MAX_SEQ, "runs": full,
+        "first_tokens_equal": True, "greedy_tokens_equal": same, "greedy_tokens": total,
+        "stream_agreement": stream_agreement(ftokens["spawned"], ftokens["threads"])}
+
+    # train_tiny: 50 AdamW steps of the smoke config, then a checkpoint round trip
+    ckpt = os.path.join(ROOT, "build", "examples", "train_tiny_ck_torch.npz")
+    tr, launches["train_tiny"], secs = counted(
+        torch, lambda: mods["train_tiny"].run(steps=TRAIN_TINY_STEPS, device="cuda",
+                                              ckpt=ckpt))
+    os.remove(ckpt)
+    losses, layers = tr["losses"], tr["cfg"].num_layers
+    uniform = math.log(tr["cfg"].vocab_size)
+    closed = (losses[0] - losses[-1]) / (losses[0] - uniform)
+    if not (np.isfinite(losses).all() and closed >= TRAIN_TINY_GAP):
+        fail(f"examples train_tiny: the loss closed {closed} of the gap to ln(vocab) "
+             f"{uniform} (want {TRAIN_TINY_GAP}): {losses[0]} -> {losses[-1]}")
+    (p2, o2), trained = tr["restored"], {"p": tr["params"], "o": tr["opt"]}
+    same_bits = tr["restored_step"] == TRAIN_TINY_STEPS and all(
+        a.dtype == b.dtype and torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                                           else a,
+                                           b.view(torch.int16) if b.dtype == torch.bfloat16
+                                           else b)
+        for a, b in zip(leaves(trained), leaves({"p": p2, "o": o2})))
+    if not same_bits:
+        fail("examples train_tiny: the checkpoint did not restore bit for bit")
+    want = (2 * layers * TRAIN_TINY_STEPS, layers * TRAIN_TINY_STEPS)
+    got = (launches["train_tiny"]["flash_attention"], launches["train_tiny"]["flash_attention_bwd"])
+    if got != want:
+        fail(f"examples train_tiny: flash forward and backward launches {got}, want {want}")
+    out["train_tiny"] = {"seconds": secs, "arch": tr["cfg"].name, "dtype": tr["cfg"].dtype,
+                         "steps": TRAIN_TINY_STEPS, "first_loss": losses[0],
+                         "final_loss": losses[-1], "losses_every_25": losses[24::25],
+                         "gap_to_uniform_closed": closed,
+                         "checkpoint_bitwise": True}
+    out["launches"] = launches
+    return out
+
+
 def decode_step_check(torch, runner, prompts, what: str):
     """One batched decode step of a PagedRunner, kernel vs plain attention,
     on the same pool: each prompt but its last token is prefilled into
@@ -3162,6 +3455,11 @@ def main() -> int:
     dry["seconds"] = time.perf_counter() - t
     emit(dry)
 
+    t = time.perf_counter()
+    examples = phase_examples(torch)
+    examples["seconds"] = time.perf_counter() - t
+    emit(examples)
+
     # launches of each kernel in the runs that use it, each counted from 0
     # (the decode child of pd_full_width counts its own and reports them)
     by_run = {"paged_attention": {"qwen_omni": launches["paged_attention"],
@@ -3189,6 +3487,12 @@ def main() -> int:
         by_run["paged_attention"][f"pd_full_width.{run}"] = r["paged_launches"]
     by_run["paged_attention"]["pd_full_width.pd_process.child"] = \
         pd["runs"]["pd_process"]["child_paged_launches"]
+    # the examples: each run's launches in this process, and each spawned
+    # decode child's own
+    for run, n in examples["launches"].items():
+        for k, v in n.items():
+            if v:
+                by_run[k][f"examples.{run}"] = v
     kernels = []
     for name, meta in KERNEL_META.items():
         # the first case is the shape the main path gives the kernel most

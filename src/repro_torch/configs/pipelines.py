@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.convert import params_from_numpy
 from repro_torch.core.config import EngineSpec
 from repro_torch.core.graph import StageGraph
 from repro_torch.core.stage import StageSpec
@@ -318,16 +319,21 @@ def build_pd_disaggregated(cfg: ModelConfig = None, *, max_batch: int = 4,
                            max_new: int = 8, temperature: float = 0.0,
                            connector: str = "shm",
                            prefix_cache: bool = False, seed: int = 0,
-                           max_seq: int = 256, device=None):
+                           max_seq: int = 256, device=None, weights=None):
     """``cfg`` defaults to a tiny LM; a published config (e.g.
     ``configs/internlm2_1_8b.py: CONFIG``) serves at full width, with
     ``max_seq`` tokens of KV pages per sequence.  ``temperature`` reaches
     both engines, so a decode stage rebuilt from its spec samples the
-    same way."""
+    same way.  ``weights``, a numpy tree of the JAX package's layout,
+    replaces the seeded draw; the specs carry it, so a stage rebuilt in a
+    spawned process serves the same weights."""
     dev = resolve_device(device)
     custom_cfg = cfg is not None
     cfg = cfg or tiny_lm("pd_lm", vocab=512)
-    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    if weights is None:
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    else:
+        params = params_from_numpy(weights, dev)
 
     def make_prefill():
         return AREngine(
@@ -358,6 +364,8 @@ def build_pd_disaggregated(cfg: ModelConfig = None, *, max_batch: int = 4,
                        device=str(dev))
     if custom_cfg:
         spec_kwargs["cfg"] = cfg             # ModelConfig pickles fine
+    if weights is not None:
+        spec_kwargs["weights"] = weights     # numpy arrays pickle too
     return graph, {"prefill": prefill, "decode": decode}, {
         "cfg": cfg, "params": params,
         "engine_factories": {"prefill": make_prefill,

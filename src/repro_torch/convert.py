@@ -31,3 +31,17 @@ def params_from_numpy(tree: Any, device="cpu") -> Any:
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
+
+
+def load_numpy_(dst: Any, src: Any) -> None:
+    """Copy a numpy tree of the JAX package's layout into a tree of the
+    port's, in place: a tensor leaf takes ``tensor_from_numpy``'s tensor,
+    a numpy leaf the array.  Engines built from a bundle hold views of its
+    leaves, so they serve the copied weights."""
+    if isinstance(dst, dict):
+        for k in dst:
+            load_numpy_(dst[k], src[k])
+    elif isinstance(dst, torch.Tensor):
+        dst.copy_(tensor_from_numpy(src, dst.device))
+    else:
+        dst[...] = np.asarray(src)

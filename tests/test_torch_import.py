@@ -1,9 +1,11 @@
 """The port imports torch, numpy and the standard library only: never
 JAX, ml_dtypes or anything of the JAX package ``repro``.
 
-Checked twice: by importing every module of ``repro_torch`` in a fresh
+Checked twice: by importing every module of ``repro_torch`` (and running
+each port example, ``examples/*_torch.py``, with ``--help``) in a fresh
 interpreter (this test process has JAX loaded by conftest), and by
-reading every import statement of the port and of chip_smoke.py.  And
+reading every import statement of the port, its examples and
+chip_smoke.py.  And
 every module of the JAX package has its counterpart in the port, under
 the same path.
 """
@@ -49,8 +51,37 @@ def test_importing_the_port_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+EXAMPLES = sorted((REPO / "examples").glob("*_torch.py"))
+
+
+def test_every_example_has_its_port():
+    jax_examples = {p.stem for p in (REPO / "examples").glob("*.py")} - {p.stem for p in EXAMPLES}
+    assert sorted(f"{s}_torch" for s in jax_examples) == [p.stem for p in EXAMPLES]
+    assert len(EXAMPLES) == 5
+
+
+@pytest.mark.parametrize("path", [str(p.relative_to(REPO)) for p in EXAMPLES])
+def test_example_help_loads_no_jax(path):
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{path!r}, '--help']\n"
+        "try:\n"
+        f"    runpy.run_path({path!r}, run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                       text=True, timeout=120, cwd=REPO)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "--device" in r.stdout
+
+
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in
-                                        [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]))
+                                        [*PORT.rglob("*.py"), *EXAMPLES,
+                                         REPO / "chip_smoke.py"]))
 def test_no_forbidden_import_statement(path):
     tree = ast.parse((REPO / path).read_text())
     for node in ast.walk(tree):
