@@ -109,12 +109,13 @@ Phases, each printing one JSON line with its wall time:
                 dropped pairs), with prefill and decode ms, the all-reduces
                 per forward and their ms, flash launches and memory per
                 rank;
-  10. dryrun  — ``repro_torch.launch.dryrun.run_one`` for five combos on
+  10. dryrun  — ``repro_torch.launch.dryrun.run_one`` for six combos on
                 the 16x16 mesh, one on 2x16x16, and the pipeline dry-run's
                 three stages, on meta DTensors under a fake process group
-                (the card unused): every record "ok", none with an op run
-                on replicated operands, two combos' collective bytes equal
-                to torch 2.13's (each record's ops printed);
+                (the card unused): every record "ok", no op placed by
+                DTensor's own strategy or run on replicated operands, and
+                every combo's collective bytes equal to torch 2.13's (each
+                record's ops printed);
   11. examples — the five port examples (``examples/*_torch.py``)
                 through their ``run`` functions at their own settings:
                 every request finished, each kernel's launches counted;
@@ -2031,13 +2032,20 @@ DRYRUN_COMBOS = (("qwen2_5_14b", "train_4k", "gspmd", False),
                  ("qwen3_moe_30b_a3b", "decode_32k", "gspmd", False),
                  ("internlm2_1_8b", "prefill_32k", "gspmd", False),
                  ("falcon_mamba_7b", "decode_32k", "gspmd", False),
+                 ("zamba2_2_7b", "train_4k", "gspmd", False),
                  ("qwen2_5_14b", "decode_32k", "gspmd", True))
 
-#: collective bytes a device of two combos at 16x16, as the same code
-#: counts them with torch 2.13 on the CPU: the dry-run's placements must
-#: not move with the torch version
-DRYRUN_TORCH_2_13 = {("qwen2_5_14b", "train_4k"): 599610703892,
-                     ("internlm2_1_8b", "prefill_32k"): 45365592064}
+#: collective bytes a device of every combo of ``DRYRUN_COMBOS``, as the
+#: same code counts them with torch 2.13 on the CPU (``python -m
+#: repro_torch.launch.dryrun``): every byte comes from the dry-run's own
+#: placement rules, so no torch version may count another
+DRYRUN_TORCH_2_13 = {("qwen2_5_14b", "train_4k", "gspmd", False): 5137769602224,
+                     ("qwen3_moe_30b_a3b", "decode_32k", "ep", False): 80371904,
+                     ("qwen3_moe_30b_a3b", "decode_32k", "gspmd", False): 433372736,
+                     ("internlm2_1_8b", "prefill_32k", "gspmd", False): 45365592064,
+                     ("falcon_mamba_7b", "decode_32k", "gspmd", False): 13238272,
+                     ("zamba2_2_7b", "train_4k", "gspmd", False): 395692179888,
+                     ("qwen2_5_14b", "decode_32k", "gspmd", True): 50279936}
 
 
 def phase_dryrun(torch):
@@ -2045,30 +2053,31 @@ def phase_dryrun(torch):
     16x16 mesh (one on 2x16x16) and ``dryrun_pipeline``'s three stages,
     in this process under a fake process group, on meta tensors: this
     machine's torch is the one checked; the card is not used.  Every
-    record must be "ok", no op may run on replicated operands, and the
-    combos of ``DRYRUN_TORCH_2_13`` must count torch 2.13's bytes."""
+    record must be "ok", no op may be placed by DTensor's own strategy
+    (``dtensor_ops``) or run on replicated operands, and every combo must
+    count torch 2.13's bytes (``DRYRUN_TORCH_2_13``)."""
     from repro_torch.launch import dryrun as D
     from repro_torch.launch import dryrun_pipeline as DP
     recs = []
-    for arch, shape, moe_impl, multi_pod in DRYRUN_COMBOS:
+    for combo in DRYRUN_COMBOS:
+        arch, shape, moe_impl, multi_pod = combo
         rec = D.run_one(arch, shape, multi_pod, os.path.join(ROOT, "chiprun_out", "dryrun"),
                         moe_impl=moe_impl)
         if rec["status"] != "ok":
             fail(f"dryrun: {arch} x {shape} ({moe_impl}): {rec.get('error')}\n"
                  f"{rec.get('traceback')}")
-        print(f"dryrun {arch} x {shape} {rec['mesh']} ({moe_impl}): collective bytes "
-              f"{rec['collective_bytes'].get('total', 0)}, replicated_ops "
-              f"{rec['replicated_ops']}, resharded_ops {rec['resharded_ops']}", flush=True)
+        got, want = rec["collective_bytes"].get("total", 0), DRYRUN_TORCH_2_13[combo]
+        rec["collective_bytes_torch_2_13"] = want
+        print(f"dryrun {arch} x {shape} {rec['mesh']} ({moe_impl}): {got} collective bytes "
+              f"with torch {torch.__version__}, {want} with torch 2.13; dtensor_ops "
+              f"{rec['dtensor_ops']}, replicated_ops {rec['replicated_ops']}, resharded_ops "
+              f"{rec['resharded_ops']}; {rec['run_s']} s", flush=True)
+        if rec["dtensor_ops"]:
+            fail(f"dryrun: {arch} x {shape}: DTensor placed ops: {rec['dtensor_ops']}")
         if rec["replicated_ops"]:
             fail(f"dryrun: {arch} x {shape}: ops ran replicated: {rec['replicated_ops']}")
-        want = DRYRUN_TORCH_2_13.get((arch, shape)) if not multi_pod else None
-        if want is not None:
-            got = rec["collective_bytes"]["total"]
-            rec["collective_bytes_torch_2_13"] = want
-            print(f"dryrun {arch} x {shape}: {got} collective bytes with torch "
-                  f"{torch.__version__}, {want} with torch 2.13", flush=True)
-            if got != want:
-                fail(f"dryrun: {arch} x {shape}: the collective bytes moved with torch")
+        if got != want:
+            fail(f"dryrun: {arch} x {shape}: the collective bytes moved with torch")
         recs.append({k: v for k, v in rec.items() if k != "traceback"})
     stages = [DP.run_stage(i) for i in range(len(DP.STAGES))]
     return {"phase": "dryrun", "torch": torch.__version__, "combos": recs, "pipeline": stages}

@@ -30,29 +30,44 @@ Mamba1 scan runs as ``ref.mamba1_scan_chunked`` on sequences longer than
 shape is 64 times as many Python steps.  The Mamba2 scan takes its
 chunked form there without help (``ops.mamba2_scan``).
 
-``DryRunMode`` watches the step and places its ops as GSPMD would,
-where DTensor would leave the choice to its cost model (which moves
-with the torch version) or has no strategy:
-  - a product (``mm``, ``bmm``) moves one operand to the other's layout,
-    whichever way moves fewer bytes, partial sums included; a
-    contraction sharded over a mesh dim is summed right away, in f32
-    (``_product``);
-  - a softmax along a sharded dim all-reduces its maxima and sums
-    (``_softmax``); a gather along a sharded dim, and an embedding
-    lookup in a table whose rows are sharded, take each rank's own range
-    and sum the result (``_take``, ``_lookup``); its gradient's
-    scatter-add sums each rank's updates (``_accumulate``); a pointwise
-    op moves its smaller operands to its largest one's layout
-    (``_pointwise``);
-  - an in-place write into a sharded tensor (a decode step's cache
-    column) stays on each rank's shard, only its values and indices
-    replicated, as GSPMD partitions a scatter; an op DTensor cannot
-    place as it comes (a view that splits a dim sharded over "model"
-    unevenly: GQA's head grouping) runs with its operands replicated
-    over one mesh dim.  Both are counted in ``resharded_ops``;
-  - only an op that none of these place runs with every operand
-    replicated over the whole mesh, counted in ``replicated_ops``.
-The math never changes: the placements decide only where each part is
+``DryRunMode`` watches the step and places every op that can move bytes
+or change a placement by its own rules, as GSPMD places it, so that no
+byte it counts depends on DTensor's strategies (which move with the
+torch version):
+  - a product (``mm``, ``bmm``) shards a batch dim in both operands, or
+    its output takes the right operand's sharded columns or the left's
+    sharded rows (the other operand gathered); a contraction sharded in
+    both (or in one, unless the output outgrows the operands) is summed
+    right away, in f32 (``_product``);
+  - a pointwise op (any op tagged so) merges its operands' shardings:
+    the largest keeps its own and takes another's where it is
+    replicated, the others move to it (``_pointwise``);
+  - a view keeps a dim's shard through a merge (a minor dim's marked
+    strided) or a split, and gathers it otherwise (``_view``); a view
+    that moves, adds or drops dims carries each shard along (``_dims``,
+    ``_unselect``, ``_unbind``); a new tensor made from one lies as it
+    does, or replicated where its shape differs (``_fresh``);
+  - a sum or mean over a sharded dim all-reduces its partial sums
+    (``_reduce``); a softmax along a sharded dim all-reduces its maxima
+    and sums (``_softmax``);
+  - a slice, pad or flip along a sharded dim is counted as XLA's
+    collective-permutes, a cumulative sum, sort or index_select as a
+    gather of the dim, a concatenation along it as an all-to-all
+    (``_along``, ``_cat``);
+  - a gather along a sharded dim, and a lookup in rows that a mesh dim
+    shards, take each rank's own range and sum the result (``_take``,
+    ``_lookup``); a scatter-add sums each rank's updates (``_take``,
+    ``_accumulate``); a scatter into unsharded rows keeps the values'
+    other shards (``_scatter``, ``_put``); an in-place write into a
+    sharded tensor (a decode step's cache column) stays on each rank's
+    shard, its values replicated over the indexed dims (``_write_into``,
+    ``_copy``).
+Casts, clones and detaches stay with DTensor (a local op).  A collective that DTensor's own strategy
+issues for an op is still counted, and its op in ``dtensor_ops``; an op
+no rule places runs with its operands replicated over one mesh dim
+(``resharded_ops``) or, failing that, the whole mesh
+(``replicated_ops``).  All three are empty on every arch x shape.  The
+math never changes: the placements decide only where each part is
 computed and what crosses between ranks.
 
 Each record keeps the JAX record's keys that have a counterpart:
@@ -61,20 +76,19 @@ Each record keeps the JAX record's keys that have a counterpart:
 ``error``, ``traceback``; ``argument_size_in_bytes`` and
 ``output_size_in_bytes`` per device (the local shards' bytes);
 ``collective_bytes`` by kind (``all-reduce``, ``all-gather``,
-``reduce-scatter``, ``all-to-all``) and ``total``: the result tensors'
-bytes of each collective as it is dispatched, the JAX parser's
-convention.  It adds ``run_s`` (building the meta arguments and running
-the step), ``collective_calls``, ``matmul_flops`` (per device, the
-products that ``torch.utils.flop_counter`` knows: not XLA's ``flops``,
-which counts every op), ``resharded_ops`` and ``replicated_ops``.
+``reduce-scatter``, ``all-to-all``, ``collective-permute``) and
+``total``: the result bytes of each collective GSPMD would issue, the
+JAX parser's convention.  It adds ``run_s`` (building the meta
+arguments and running the step), ``collective_calls``, ``matmul_flops``
+(per device, the products that ``torch.utils.flop_counter`` knows: not
+XLA's ``flops``, which counts every op), ``dtensor_ops``,
+``resharded_ops`` and ``replicated_ops``.
 
 Left out, as XLA's alone: ``lower_s``, ``compile_s``,
 ``temp_size_in_bytes``, ``generated_code_size_in_bytes``, ``bytes``,
 ``uncorrected_total``, and the HLO parser ``collective_bytes`` with its
 while-loop trip counts: the port's layer loop is Python, so every
-collective is counted once per call and nothing needs correcting.  A
-mesh on the "cpu" device type has no all-to-all in DTensor, which moves
-a shard between dims with an all-gather instead (counted as such).
+collective is counted once per call and nothing needs correcting.
 """
 from __future__ import annotations
 
@@ -141,23 +155,18 @@ def _dtensors(a):
     return []
 
 
-def _redistribute(a, placements_of):
-    """Every DTensor in ``a`` redistributed to ``placements_of(dtensor)``."""
-    from torch.distributed.tensor import DTensor
-    if isinstance(a, DTensor):
-        want = tuple(placements_of(a))
-        return a if want == tuple(a.placements) else a.redistribute(a.device_mesh, want)
-    if isinstance(a, (list, tuple)):
-        return type(a)(_redistribute(x, placements_of) for x in a)
-    return a
+def _shard_dim(p):
+    """The tensor dim a placement shards, else None."""
+    from torch.distributed.tensor import Shard
+    return p.dim if isinstance(p, Shard) else None
 
 
-def _replicate(a, mesh_dims=None):
-    """DTensors replicated over ``mesh_dims`` (every mesh dim if None)."""
+def _replicated(t, mesh_dims=None):
+    """``t``'s placements replicated over ``mesh_dims`` (every mesh dim if
+    None)."""
     from torch.distributed.tensor import Replicate
-    return _redistribute(a, lambda t: [
-        Replicate() if mesh_dims is None or i in mesh_dims else p
-        for i, p in enumerate(t.placements)])
+    return [Replicate() if mesh_dims is None or i in mesh_dims else p
+            for i, p in enumerate(t.placements)]
 
 
 def _summed(t):
@@ -166,158 +175,563 @@ def _summed(t):
     return [Replicate() if p.is_partial() else p for p in t.placements]
 
 
-def _sum_partials(t):
-    """A DTensor's partial placements summed (all-reduced) at once."""
-    return _redistribute(t, _summed)
+def _contiguous(shape, like=None) -> tuple:
+    """The strides of a dense tensor of ``shape``: contiguous, or with its
+    dims in the memory order of ``like`` (a local shard), so that a
+    DTensor's global strides follow its local tensor's on every torch
+    version."""
+    order = (sorted(range(len(shape)), key=lambda d: -like.stride(d)) if like is not None
+             else range(len(shape)))
+    out, n = [0] * len(shape), 1
+    for d in reversed(list(order)):
+        out[d] = n
+        n *= max(shape[d], 1)
+    return tuple(out)
 
 
-def _shard_dim(p):
-    """The tensor dim a placement shards (``Shard`` or ``_StridedShard``),
-    else None."""
-    from torch.distributed.tensor import Shard
-    from torch.distributed.tensor.placement_types import _StridedShard
-    return p.dim if isinstance(p, (Shard, _StridedShard)) else None
-
-
-def _lhs_placements(a, b):
-    """Where ``a`` must lie for ``a @ b`` (mm or bmm) to need no move of
-    ``b``: per mesh dim, sharded on its contraction dim where ``b`` is,
-    replicated where ``b`` shards its columns or is partial, on the same
-    batch dim as ``b``, and as it is where ``b`` is replicated (unless
-    its contraction dim is sharded there alone)."""
-    from torch.distributed.tensor import Replicate, Shard
-    nd = a.ndim
-    want = []
-    for pa, pb in zip(a.placements, b.placements):
-        db, da = _shard_dim(pb), _shard_dim(pa)
-        if db == nd - 2:
-            want.append(Shard(nd - 1))
-        elif db == nd - 1 or pb.is_partial():
-            want.append(Replicate())
-        elif db is not None:
-            want.append(pb)
-        elif da == nd - 1:
-            want.append(Replicate())
-        else:
-            want.append(pa)
-    return want
-
-
-def _rhs_placements(a, b):
-    """``_lhs_placements`` the other way round: where ``b`` must lie for
-    ``a @ b`` to need no move of ``a``."""
-    from torch.distributed.tensor import Replicate, Shard
-    nd = b.ndim
-    want = []
-    for pa, pb in zip(a.placements, b.placements):
-        da, db = _shard_dim(pa), _shard_dim(pb)
-        if da == nd - 1:
-            want.append(Shard(nd - 2))
-        elif da == nd - 2 or pa.is_partial():
-            want.append(Replicate())
-        elif da is not None:
-            want.append(pa)
-        elif db == nd - 2:
-            want.append(Replicate())
-        else:
-            want.append(pb)
-    return want
-
-
-def _local_bytes(t, placements) -> float:
-    n = t.numel() * t.element_size()
+def _local_shape(t, placements) -> list:
+    """This rank's shape of ``t`` under ``placements``: its local tensor's
+    where they are ``t``'s own, else each sharded dim divided by its mesh
+    dims' sizes, rounded up (rank 0's shard, XLA's padded one)."""
+    if tuple(placements) == tuple(t.placements):
+        return list(t.to_local().shape)
+    shape = list(t.shape)
     for i, p in enumerate(placements):
-        if _shard_dim(p) is not None:
-            n /= t.device_mesh.size(i)
-    return n
+        d = _shard_dim(p)
+        if d is not None:
+            shape[d] = -(-shape[d] // t.device_mesh.size(i))
+    return shape
 
 
-def _move_bytes(t, want) -> float:
-    """The result bytes of the collectives that take ``t`` to ``want``,
-    one mesh dim after the other: all-gather (a shard to replicated),
-    all-to-all (a shard to another dim), all-reduce or reduce-scatter (a
-    partial sum); a replicated tensor is sliced for nothing."""
-    cur, total = list(t.placements), 0.0
-    for i, (src, dst) in enumerate(zip(t.placements, want)):
+def _local_bytes(t, placements) -> int:
+    return math.prod(_local_shape(t, placements)) * t.element_size()
+
+
+def _moves(t, want) -> list:
+    """(kind, bytes) of the collectives that take ``t`` to ``want``, one
+    mesh dim after the other, each counted by its result as XLA's parser
+    counts it: all-gather (a shard to replicated), all-to-all (a shard to
+    another dim), all-reduce or reduce-scatter (a partial sum); a
+    replicated tensor is sliced for nothing."""
+    cur, out = list(t.placements), []
+    for i, dst in enumerate(want):
+        src = cur[i]
         if src == dst:
             continue
         local, n = _local_bytes(t, cur), t.device_mesh.size(i)
-        if src.is_partial():
-            total += local if dst.is_replicate() else local / n
-        elif _shard_dim(src) is not None:
-            total += local * n if dst.is_replicate() else local
         cur[i] = dst
-    return total
+        if src.is_partial():
+            out.append(("all-reduce", local) if dst.is_replicate()
+                       else ("reduce-scatter", _local_bytes(t, cur)))
+        elif _shard_dim(src) is not None:
+            out.append(("all-gather", local * n) if dst.is_replicate()
+                       else ("all-to-all", _local_bytes(t, cur)))
+    return out
 
 
 def _product(mode, func, args, kwargs):
-    """``mm`` / ``bmm`` placed as GSPMD places a product: one operand
-    moves to the other's layout, whichever way moves fewer bytes (the
-    left one on a tie, so that a weight, or in the backward the output's
-    gradient, stays; a weight sharded on its rows stays, and the sum
-    over them follows).
-    A contraction sharded over a mesh dim leaves each rank a partial sum:
-    it is kept in f32 (the product accumulates in f32), all-reduced at
-    once in f32 and rounded once, the rule of the EP combine
-    (``models/moe_ep.py``); XLA's partitioned HLO also all-reduces the
-    partial sums of a bf16 product in f32 on the CPU.  When the output
-    is larger than both operands with their contraction dim gathered
-    (the scores of a backward through attention), the contraction dim is
-    gathered instead."""
-    from torch.distributed.tensor import DTensor, Replicate
+    """``mm`` / ``bmm`` placed as GSPMD's dot handler places a product,
+    mesh dim by mesh dim:
+      - a batch dim sharded in either operand shards it in both;
+      - else the output takes a column of the right operand, or a row of
+        the left one, that the mesh dim shards, the other operand gathered
+        there (the columns first: an activation sharded on its features
+        is gathered for a weight sharded on its outputs);
+      - else a contraction sharded in both operands, or in one whose
+        output is no larger than the operands gathered (``_outgrows``), is
+        sharded alike in both (a replicated operand is sliced for
+        nothing), and each rank holds a partial sum: it is kept in f32
+        (the product accumulates in f32), all-reduced at once in f32 and
+        rounded once, the rule of the EP combine (``models/moe_ep.py``);
+        XLA's partitioned HLO also all-reduces the partial sums of a bf16
+        product in f32 on the CPU.  A mesh dim that replicates both
+        operands then shards the summed output's columns (a slice of the
+        right operand), so that the all-reduce moves a part of it.
+    The local product runs on the local shards."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     a, b = args[:2]
-    if len(args) > 2 or kwargs or not (isinstance(a, DTensor) and isinstance(b, DTensor)):
+    if (len(args) > 2 or kwargs or not (isinstance(a, DTensor) and isinstance(b, DTensor))
+            or a.device_mesh != b.device_mesh
+            or any(p.is_partial() and p != Partial() for p in (*a.placements, *b.placements))):
         return NotImplemented
-    nd = a.ndim
+    nd, rep = a.ndim, Replicate()
     dtype = torch.promote_types(a.dtype, b.dtype)
-    ways = ((_lhs_placements(a, b), list(b.placements)),
-            (list(a.placements), _rhs_placements(a, b)))
-    pa, pb = min(ways, key=lambda w: _move_bytes(a, w[0]) + _move_bytes(b, w[1]))
-    summed = [i for i, q in enumerate(pa) if _shard_dim(q) == nd - 1 or q.is_partial()]
-    if summed:
-        # the output's local bytes against both operands' with the
-        # contraction dim gathered
-        out = a.numel() // a.shape[-1] * b.shape[-1] * dtype.itemsize
-        for i, (qa, qb) in enumerate(zip(pa, pb)):
-            if _shard_dim(qa) in range(nd - 1) or _shard_dim(qb) == nd - 1:
-                out /= a.device_mesh.size(i)
-        gathered = math.prod(a.device_mesh.size(i) for i in summed)
-        if out > gathered * (_local_bytes(a, pa) + _local_bytes(b, pb)):
-            pb = [Replicate() if i in summed else q for i, q in enumerate(pb)]
-            pa = [Replicate() if i in summed else q for i, q in enumerate(pa)]
-    a, b = _redistribute(a, lambda t: pa), _redistribute(b, lambda t: pb)
-    out_p = _product_placements(a.placements, b.placements, nd)
-    if out_p is None:                 # a layout these rules do not make
-        return func(a, b)
+    pa, pb, out_p = list(a.placements), list(b.placements), []
+    for i, (qa, qb) in enumerate(zip(a.placements, b.placements)):
+        da, db = _shard_dim(qa), _shard_dim(qb)
+        if da is not None and da < nd - 2 or db is not None and db < nd - 2:
+            pa[i] = pb[i] = o = qa if da is not None and da < nd - 2 else qb
+        elif db == nd - 1:
+            pa[i], o = rep, qb
+        elif da == nd - 2:
+            pb[i], o = rep, qa
+        elif da == nd - 1 or db == nd - 2:
+            if (da == nd - 1) != (db == nd - 2) and _outgrows(a, b, i):
+                pa[i] = pb[i] = o = rep
+            else:
+                pa[i], pb[i], o = Shard(nd - 1), Shard(nd - 2), Partial()
+        elif qa.is_partial() or qb.is_partial():
+            pb[i] = rep if qa.is_partial() else qb
+            o = Partial()
+        else:
+            o = rep
+        out_p.append(o)
+    if any(p.is_partial() for p in out_p) and Shard(nd - 1) not in out_p:
+        # a mesh dim that replicates both operands shards the summed
+        # output's columns: GSPMD's all-reduce over "model" of an expert
+        # product's partial sums, on a buffer that "data" replicates
+        for i, o in enumerate(out_p):
+            if o.is_replicate() and b.shape[-1] % b.device_mesh.size(i) == 0:
+                pb[i] = out_p[i] = Shard(nd - 1)
+                break
+    # a strided shard (a merged batch and heads) of a batch dim, a's rows or
+    # b's columns stays so in the output
+    merged = {i: sf for t, dims in ((a, range(nd - 1)), (b, (*range(nd - 2), nd - 1)))
+              for i, sf in _strided(t).items()
+              if _shard_dim(t.placements[i]) == _shard_dim(out_p[i]) in dims}
+    a, b = mode.move(a, lambda t: pa), mode.move(b, lambda t: pb)
     partial = any(p.is_partial() for p in out_p)
     la, lb = a.to_local(), b.to_local()
-    # the local product, placed by the rules above (DTensor's own
-    # propagation of a batch dim sharded over two mesh dims is slow)
     local = func(la.float(), lb.float()) if partial else func(la, lb)
     shape = (*a.shape[:-1], b.shape[-1])
     out = DTensor.from_local(local, a.device_mesh, out_p, run_check=False, shape=shape,
-                             stride=torch.empty(shape, device="meta").stride())
-    return _sum_partials(out).to(dtype) if partial else out
+                             stride=_contiguous(shape))
+    return mode.move(out, _summed).to(dtype) if partial else _merge_marked(out, merged)
 
 
-def _product_placements(pa, pb, nd):
-    """The placements of ``a @ b`` from its operands' (mm or bmm, ``nd``
-    dims), or None where they do not line up."""
-    from torch.distributed.tensor import Partial
-    out = []
-    for qa, qb in zip(pa, pb):
-        da, db = _shard_dim(qa), _shard_dim(qb)
-        if da == nd - 1 and db == nd - 2 or (qa.is_partial() and qb.is_replicate()) or (
-                qb.is_partial() and qa.is_replicate()):
-            out.append(Partial())
-        elif da is not None and da < nd - 1 and (qb == qa if da < nd - 2 else
-                                                 qb.is_replicate()):
-            out.append(qa)
-        elif qa.is_replicate() and (db == nd - 1 or qb.is_replicate()):
-            out.append(qb)
+def _outgrows(a, b, i: int) -> bool:
+    """Whether ``a @ b``'s local output is larger than both operands with
+    their contraction dim gathered over mesh dim ``i`` (the scores of
+    attention against a query or key that only one side shards there)."""
+    nd, n = a.ndim, a.device_mesh.size(i)
+    out = math.prod(_local_shape(a, a.placements)[:-1]) * b.shape[-1] * max(
+        a.element_size(), b.element_size())
+    out //= math.prod(b.device_mesh.size(j) for j, p in enumerate(b.placements)
+                      if _shard_dim(p) == nd - 1)
+    gathered = [_local_bytes(t, t.placements) * (n if _shard_dim(p) == d else 1)
+                for t, p, d in ((a, a.placements[i], nd - 1), (b, b.placements[i], nd - 2))]
+    return out > sum(gathered)
+
+
+def _pointwise(mode, func, args, kwargs):
+    """A pointwise op (any op tagged so), placed as GSPMD merges its
+    operands' shardings: the largest operand (the first of equals: the
+    residual stream in ``x + y``; the destination of an in-place op)
+    keeps its shards and, where it is replicated over a mesh dim that
+    shards another operand on a dim of its own, takes that shard (a
+    slice, for nothing: a bias sharded on head_dim shards the activation
+    it is added to); the other operands (a plain tensor as replicated)
+    move to that layout, and the op runs on the local shards."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    dts = [a for a in args if isinstance(a, DTensor)]
+    if (not dts or any(d.device_mesh != dts[0].device_mesh for d in dts)
+            or any(p.is_partial() for d in dts for p in d.placements)
+            or any(isinstance(v, torch.Tensor) for v in kwargs.values())):
+        return NotImplemented
+    mesh = dts[0].device_mesh
+    args = [DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+            if isinstance(a, torch.Tensor) and not isinstance(a, DTensor) and a.ndim else a
+            for a in args]
+    dts = [a for a in args if isinstance(a, DTensor)]
+    inplace = func._schema.is_mutable
+    lead = args[0] if inplace else max(dts, key=lambda d: d.numel())
+    if not isinstance(lead, DTensor):
+        return NotImplemented
+    target = list(lead.placements)
+    taken = {_shard_dim(p) for p in target} - {None}
+    for i, p in enumerate(target):
+        if inplace or not p.is_replicate():
+            continue
+        for d in sorted(dts, key=lambda d: -d.numel()):
+            k = _shard_dim(d.placements[i])
+            if k is None:
+                continue
+            kl = k + lead.ndim - d.ndim
+            if kl >= 0 and kl not in taken and lead.shape[kl] == d.shape[k] > 1:
+                target[i] = Shard(kl)
+                taken.add(kl)
+                break
+
+    def place(t, shape=None):            # ``target`` on a tensor of this shape
+        shape = t.shape if shape is None else shape
+        out = []
+        for p in target:
+            d = _shard_dim(p)
+            d = None if d is None else d - (lead.ndim - len(shape))
+            out.append(Shard(d) if d is not None and d >= 0 and shape[d] > 1
+                       else Replicate())
+        return out
+
+    args = [mode.move(a, place) if isinstance(a, DTensor) else a for a in args]
+    got = func(*[a.to_local() if isinstance(a, DTensor) else a for a in args], **kwargs)
+    if inplace or not isinstance(got, torch.Tensor):
+        return args[0] if inplace else NotImplemented
+    shape = torch.broadcast_shapes(*(a.shape for a in args if isinstance(a, torch.Tensor)))
+    return DTensor.from_local(got, mesh, place(None, shape), run_check=False, shape=shape,
+                              stride=_contiguous(shape, got))
+
+
+def _groups(ins, outs) -> list:
+    """A reshape from ``ins`` to ``outs`` as groups of dims of equal
+    products: [(input dims, output dims)]."""
+    groups, i, j = [], 0, 0
+    while i < len(ins) or j < len(outs):
+        gi, go, pi, po = [], [], 1, 1
+        if i < len(ins):
+            gi, pi, i = [i], ins[i], i + 1
+        if j < len(outs):
+            go, po, j = [j], outs[j], j + 1
+        while pi != po:
+            if pi < po:
+                gi, pi, i = gi + [i], pi * ins[i], i + 1
+            else:
+                go, po, j = go + [j], po * outs[j], j + 1
+        groups.append((gi, go))
+    return groups
+
+
+def _view(mode, func, args, kwargs):
+    """``view`` / ``_unsafe_view`` placed by GSPMD's reshape rule, group by
+    group of dims (``_groups``): a dim that keeps its size keeps its shard;
+    a merge keeps the shard of its major dim, and a minor dim's too (a
+    batch dim over "data" merged with heads over "model", as ``einsum``
+    does before a batched product), as a shard of the merged dim whose
+    rows are strided (``_strided``: the local size of the dims above it,
+    kept on the DTensor as ``_merged``); a split puts a shard on the first
+    output dim that takes it evenly, a strided one back on the dim it was
+    merged from; any other shard is gathered first.  The placements are
+    plain shards either way, so that no torch version reads them another
+    way, and the local shard is viewed as it lies."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    x, size = args[0], args[1]
+    if kwargs or not isinstance(x, DTensor) or x.numel() == 0:
+        return NotImplemented
+    shape = list(torch.empty(x.shape, device="meta").view(size).shape)
+    mesh, ins, strided = x.device_mesh, list(x.shape), _strided(x)
+    groups = _groups(ins, shape)
+    group_of = {d: g for g, (gi, _) in enumerate(groups) for d in gi}
+    local_in = list(x.to_local().shape)
+    want, out_p, merged = list(x.placements), [], {}
+    split = [1] * len(shape)                  # mesh sizes already on each output dim
+    for i, p in enumerate(x.placements):
+        d, n = _shard_dim(p), mesh.size(i)
+        if d is None:
+            out_p.append(p)
+            continue
+        gi, go = groups[group_of[d]]
+        nin = [k for k in gi if ins[k] > 1]
+        nout = [k for k in go if shape[k] > 1]
+        got = None
+        if d not in nin:
+            pass
+        elif len(nin) == 1 and len(nout) == 1:
+            got = Shard(nout[0])
+            if i in strided:
+                merged[i] = strided[i]
+        elif len(nout) == 1 and i not in strided and ins[d] % n == 0:
+            got = Shard(nout[0])
+            if d != nin[0]:
+                merged[i] = math.prod(local_in[k] for k in gi[:gi.index(d)])
+        elif len(nin) == 1:
+            for k in nout:
+                if i in strided:
+                    ok = (math.prod(shape[m] // split[m] for m in go[:go.index(k)])
+                          == strided[i] and shape[k] % n == 0)
+                else:
+                    ok = shape[k] % (split[k] * n) == 0
+                if ok:
+                    got, split[k] = Shard(k), split[k] * n
+                    break
+                if i not in strided:
+                    break
+        if got is None:
+            want[i] = Replicate()
+        out_p.append(got if got is not None else Replicate())
+    x = mode.move(x, lambda t: want)
+    local_in = list(x.to_local().shape)
+    local = list(shape)
+    for gi, go in groups:
+        sharded = [k for k in go if any(_shard_dim(p) == k for p in out_p)]
+        if len(sharded) == 1:
+            local[sharded[0]] = (math.prod(local_in[k] for k in gi)
+                                 // math.prod(shape[k] for k in go if k != sharded[0]))
         else:
-            return None
-    return out
+            for k in sharded:
+                local[k] = -(-shape[k] // math.prod(mesh.size(i) for i, p in enumerate(out_p)
+                                                    if _shard_dim(p) == k))
+    try:
+        got = func(x.to_local(), local)
+    except RuntimeError:        # a local shard that cannot be viewed so: a copy
+        got = x.to_local().reshape(local)
+    return _merge_marked(DTensor.from_local(got, mesh, out_p, run_check=False,
+                                            shape=tuple(shape),
+                                            stride=_contiguous(shape, got)), merged)
+
+
+def _strided(t) -> dict:
+    """{mesh dim: split factor} of ``t``'s shards that a merge left strided
+    (``_view``): the mesh dim shards the merged dim's rows in every run of
+    ``split factor`` blocks, not in one block."""
+    return getattr(t, "_merged", {})
+
+
+def _merge_marked(t, merged: dict):
+    if merged:
+        t._merged = merged
+    return t
+
+
+def _along(mode, tensors, dims, kind, compute, times: int = 1):
+    """``compute`` (on local tensors) of ``tensors``, which lie alike, as an
+    op along their ``dims``: where mesh dims shard any of them, as GSPMD
+    partitions an op along a partitioned dim: those mesh dims gathered,
+    the op run on the local shards, and its result(s) sharded again as the
+    inputs were; counted as the collectives XLA issues for it, ``times``
+    of ``kind`` ("all-gather": the gathered operand's bytes;
+    "collective-permute" (a flip: each shard to its mirror; a slice: an
+    output shard's left and right halo, two) and "all-to-all" (a
+    concatenation): the result's local bytes).  Along unsharded dims the
+    op runs on the local shards and moves nothing.  ``compute`` also runs
+    on meta tensors of the global shapes, for the result's."""
+    from torch.distributed.tensor import DTensor
+    x = tensors[0]
+    over = {i for i, p in enumerate(x.placements) if _shard_dim(p) in dims}
+    full = [mode.move(t, lambda t: _replicated(t, over), count=False) for t in tensors]
+    got, glob = compute([t.to_local() for t in full]), compute(_global_meta(full))
+    outs = [DTensor.from_local(g, x.device_mesh, full[0].placements, run_check=False,
+                               shape=m.shape, stride=_contiguous(m.shape, g))
+            for g, m in zip(*((got, glob) if isinstance(got, tuple) else ((got,), (glob,))))]
+    outs = [mode.move(t, lambda t: x.placements, count=False) for t in outs]
+    for _ in range(times if over else 0):
+        mode.count(kind, _local_bytes(full[0], full[0].placements) if kind == "all-gather"
+                   else sum(_local_bytes(t, t.placements) for t in outs))
+    return tuple(outs) if isinstance(got, tuple) else outs[0]
+
+
+def _dim_op(kind, dims_of, times: int = 1):
+    """A rule for an op along the dims ``dims_of(args, kwargs)`` of its
+    first argument (``_along``)."""
+    def rule(mode, func, args, kwargs):
+        from torch.distributed.tensor import DTensor
+        x = args[0]
+        if not isinstance(x, DTensor) or x.ndim == 0:
+            return NotImplemented
+        dims = {d % x.ndim for d in dims_of(args, kwargs)}
+        if func is _aten.slice_backward.default:      # the sizes: the local shard's
+            return _along(mode, [x], dims, kind, lambda t: func(
+                t[0], [n if k == args[2] % x.ndim else m
+                       for k, (n, m) in enumerate(zip(args[1], t[0].shape))], *args[2:]), times)
+        return _along(mode, [x], dims, kind, lambda t: func(t[0], *args[1:], **kwargs), times)
+    return rule
+
+
+def _slice_dims(args, kwargs):
+    """The dim a slice cuts, unless it keeps the whole of it."""
+    x, dim = args[0], args[1] if len(args) > 1 else 0
+    start, end = (args[2] if len(args) > 2 else None), (args[3] if len(args) > 3 else None)
+    step = args[4] if len(args) > 4 else 1
+    whole = (start in (None, 0) and (end is None or end >= x.shape[dim]) and step == 1)
+    return () if whole else (dim,)
+
+
+def _cat(mode, func, args, kwargs):
+    """``cat`` / ``stack``: every operand moves to the layout of the one
+    whose layout moves the fewest bytes; a concatenation along a sharded
+    dim is sharded again on it,
+    counted as XLA's all-to-all of the result's local bytes (``_along``);
+    otherwise the local shards are joined as they lie."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    tensors, dim = args[0], args[1] if len(args) > 1 else 0
+    dts = [t for t in tensors if isinstance(t, DTensor)]
+    if kwargs or not dts:
+        return NotImplemented
+    mesh = dts[0].device_mesh                   # a plain tensor as replicated
+    tensors = [t if isinstance(t, DTensor) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False) for t in tensors]
+    if any(t.ndim != tensors[0].ndim or t.device_mesh != mesh for t in tensors):
+        return NotImplemented
+    # the operands' layout that moves the fewest bytes (the first of equals)
+    lead = min(tensors, key=lambda c: sum(sum(nb for _, nb in _moves(t, c.placements))
+                                          for t in tensors))
+    tensors = [mode.move(t, lambda t: lead.placements) for t in tensors]
+    if func._overloadpacket.__name__ == "cat":
+        return _along(mode, tensors, {dim % lead.ndim}, "all-to-all", lambda t: func(t, dim))
+    dim %= lead.ndim + 1
+    out_p = [Shard(_shard_dim(p) + (_shard_dim(p) >= dim))
+             if _shard_dim(p) is not None else p for p in lead.placements]
+    local = func([t.to_local() for t in tensors], dim)
+    shape = func([_global_meta(t) for t in tensors], dim).shape
+    return DTensor.from_local(local, lead.device_mesh, out_p, run_check=False, shape=shape,
+                              stride=_contiguous(shape, local))
+
+
+def _dims_map(func, args, ndim: int):
+    """For a view that moves dims without touching their elements: for each
+    output dim, the input dim it is (None for a new one), and the input
+    dims it drops (a select's, a squeeze's)."""
+    name = func._overloadpacket.__name__
+    if name == "permute":
+        return [d % ndim for d in args[1]], ()
+    if name in ("transpose", "t"):
+        a, b = (args[1] % ndim, args[2] % ndim) if name == "transpose" else (0, 1)
+        out = list(range(ndim))
+        out[a], out[b] = b, a
+        return out[:ndim], ()
+    if name == "unsqueeze":
+        d = args[1] % (ndim + 1)
+        return [*range(d), None, *range(d, ndim)], ()
+    if name == "select":
+        d = args[1] % ndim
+        return [k for k in range(ndim) if k != d], (d,)
+    if name == "squeeze":
+        shape = args[0].shape
+        dims = (range(ndim) if len(args) < 2 else
+                [args[1]] if isinstance(args[1], int) else args[1])
+        gone = {d % ndim for d in dims if shape[d % ndim] == 1}
+        return [k for k in range(ndim) if k not in gone], tuple(gone)
+    if name == "expand":
+        new = len(args[1]) - ndim
+        return [None] * new + list(range(ndim)), ()
+    return [*range(ndim)], ()                       # alias
+
+
+def _dims(mode, func, args, kwargs):
+    """A view that only moves, adds or drops dims (``permute``,
+    ``transpose``, ``t``, ``unsqueeze``, ``squeeze``, ``select``,
+    ``expand``, ``alias``): each shard follows its dim; a select along a
+    sharded dim gathers it first.  The view runs on the local shard (an
+    expand keeps a sharded dim's local size)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    x = args[0]
+    if kwargs and func._overloadpacket.__name__ != "expand" or not isinstance(x, DTensor):
+        return NotImplemented
+    src, gone = _dims_map(func, args, x.ndim)
+    x = mode.move(x, lambda t: [Replicate() if _shard_dim(p) in gone else p
+                                for p in t.placements])
+    out_p = [Shard(src.index(_shard_dim(p))) if _shard_dim(p) is not None else p
+             for p in x.placements]
+    rest = list(args[1:])
+    if func._overloadpacket.__name__ == "expand":
+        rest[0] = [-1 if any(_shard_dim(p) == k for p in out_p) else n
+                   for k, n in enumerate(args[1])]
+    got = func(x.to_local(), *rest, **kwargs)
+    glob = func(_global_meta(x), *args[1:], **kwargs)
+    return _merge_marked(
+        DTensor.from_local(got, x.device_mesh, out_p, run_check=False, shape=glob.shape,
+                           stride=tuple(glob.stride()) if func._overloadpacket.__name__ == "expand"
+                           else _contiguous(glob.shape, got)),
+        {i: sf for i, sf in _strided(x).items()})
+
+
+def _unselect(mode, func, args, kwargs):
+    """``select_backward``: the gradient put back at its index, in zeros of
+    the input's shape; each rank on its own shard (the dim it adds is a
+    whole one)."""
+    from torch.distributed.tensor import DTensor, Shard
+    g, sizes, dim, index = args
+    if kwargs or not isinstance(g, DTensor):
+        return NotImplemented
+    dim %= len(sizes)
+    out_p = [Shard(_shard_dim(p) + (_shard_dim(p) >= dim))
+             if _shard_dim(p) is not None else p for p in g.placements]
+    local = list(g.to_local().shape)
+    local.insert(dim, sizes[dim])
+    got = func(g.to_local(), local, dim, index)
+    return DTensor.from_local(got, g.device_mesh, out_p, run_check=False,
+                              shape=torch.Size(sizes), stride=_contiguous(sizes, got))
+
+
+def _unbind(mode, func, args, kwargs):
+    """``unbind`` along a dim: gathered first where it is sharded; each
+    piece keeps the other dims' shards."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    x, dim = args[0], (args[1] if len(args) > 1 else 0) % args[0].ndim
+    if kwargs or not isinstance(x, DTensor):
+        return NotImplemented
+    x = mode.move(x, lambda t: [Replicate() if _shard_dim(p) == dim else p
+                                for p in t.placements])
+    out_p = [Shard(_shard_dim(p) - (_shard_dim(p) > dim))
+             if _shard_dim(p) is not None else p for p in x.placements]
+    shape = torch.Size([n for k, n in enumerate(x.shape) if k != dim])
+    return tuple(DTensor.from_local(t, x.device_mesh, out_p, run_check=False, shape=shape,
+                                    stride=_contiguous(shape, t))
+                 for t in func(x.to_local(), dim))
+
+
+def _pad_dims(args, kwargs):
+    """The dims ``constant_pad_nd`` pads (its pads count from the last)."""
+    x, pad = args[0], args[1]
+    return [x.ndim - 1 - k // 2 for k in range(0, len(pad), 2) if pad[k] or pad[k + 1]]
+
+
+def _index_select(mode, func, args, kwargs):
+    """``index_select`` along a dim, gathered first where it is sharded
+    (``_along``), the index replicated."""
+    from torch.distributed.tensor import DTensor
+    x, dim, index = args
+    if kwargs or not isinstance(x, DTensor):
+        return NotImplemented
+    dim %= x.ndim
+    index = (mode.move(index, _replicated).to_local() if isinstance(index, DTensor)
+             else index)
+    return _along(mode, [x], {dim}, "all-gather",
+                  lambda t: func(t[0], dim, index.to(t[0].device)))
+
+
+def _fresh(mode, func, args, kwargs):
+    """A new tensor made from a DTensor (``new_zeros`` and its kin,
+    ``zeros_like`` and its kin): a ``*_like`` lies as its input, a
+    ``new_*`` of the input's shape too, one of another shape replicated
+    (its values are the same everywhere); made on the local shard."""
+    from torch.distributed.tensor import DTensor, Replicate
+    x = args[0]
+    if not isinstance(x, DTensor):
+        return NotImplemented
+    rest = list(args[1:])
+    shape = x.shape
+    out_p = list(x.placements)
+    if func._overloadpacket.__name__.startswith("new_"):
+        shape = torch.Size(rest[0])
+        if shape != x.shape:
+            out_p = [Replicate()] * x.device_mesh.ndim
+        else:
+            rest[0] = x.to_local().shape
+    got = func(x.to_local(), *rest, **kwargs)
+    return DTensor.from_local(got, x.device_mesh, out_p, run_check=False, shape=shape,
+                              stride=_contiguous(shape, got))
+
+
+def _reduce(mode, func, args, kwargs):
+    """``sum`` / ``mean`` / ``amax`` over dims of which mesh dims shard
+    some: each rank reduces its shard (a mean divides by the global count)
+    and the partial results are all-reduced at once, as GSPMD sums them."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    x = args[0]
+    if (not isinstance(x, DTensor) or x.ndim == 0
+            or any(p.is_partial() for p in x.placements)):
+        return NotImplemented
+    dims = args[1] if len(args) > 1 and args[1] else range(x.ndim)
+    dims = sorted({d % x.ndim for d in dims})
+    keep = args[2] if len(args) > 2 else kwargs.get("keepdim", False)
+    name = func._overloadpacket.__name__
+    out_p = []
+    for p in x.placements:
+        d = _shard_dim(p)
+        out_p.append(p if d is None else Partial("max" if name == "amax" else "sum")
+                     if d in dims else Shard(d if keep else d - sum(k < d for k in dims)))
+    dtype = kwargs.get("dtype")
+    shape = _global_meta(x).sum(dims, keepdim=keep).shape
+    local = x.to_local()
+    if name == "amax":
+        got = local.amax(dims, keepdim=keep)
+    elif name == "mean":
+        count = math.prod(x.shape[d] for d in dims)
+        got = (local.sum(dims, keepdim=keep, dtype=torch.float32) / count).to(dtype or x.dtype)
+    else:
+        got = local.sum(dims, keepdim=keep, dtype=dtype)
+    out = DTensor.from_local(got, x.device_mesh, out_p, run_check=False, shape=shape,
+                             stride=_contiguous(shape))
+    return mode.move(out, _summed)
 
 
 def _softmax(mode, func, args, kwargs):
@@ -328,17 +742,28 @@ def _softmax(mode, func, args, kwargs):
     name = func._overloadpacket.__name__
     backward = name.endswith("_backward_data")
     x, dim = args[0], args[2 if backward else 1] % args[0].ndim
-    if (kwargs or not all(isinstance(t, DTensor) for t in args[:2 if backward else 1])
-            or not any(_shard_dim(p) == dim for p in x.placements)):
+    ins = args[:2 if backward else 1]
+    if kwargs or not all(isinstance(t, DTensor) for t in ins):
         return NotImplemented
+    lead = next((t for t in ins[::-1] if any(_shard_dim(p) == dim for p in t.placements)),
+                ins[-1])
+    if backward:            # the gradient and the output alike (a slice, for nothing)
+        args = (*mode.move(ins, lambda t: lead.placements), *args[2:])
+    if not any(_shard_dim(p) == dim for p in lead.placements):      # on the local rows
+        local = [t.to_local() for t in args[:len(ins)]]
+        if not backward and args[2] and x.dtype != torch.float32:   # half_to_float
+            local, args = [local[0].float()], (args[0], dim, False)
+        got = func(*local, *args[len(ins):])
+        return DTensor.from_local(got, lead.device_mesh, lead.placements, run_check=False,
+                                  shape=lead.shape, stride=_contiguous(lead.shape, got))
 
     def total(t):
-        return _sum_partials(t.sum(dim, keepdim=True))
+        return t.sum(dim, keepdim=True)
 
     if not backward:
         if args[2] and x.dtype != torch.float32:          # half_to_float
             x = x.float()
-        z = x - _sum_partials(x.amax(dim, keepdim=True))
+        z = x - x.amax(dim, keepdim=True)
         return z - total(z.exp()).log() if name == "_log_softmax" else z.exp() / total(z.exp())
     g, y = args[0], args[1]
     if name == "_softmax_backward_data":
@@ -346,82 +771,213 @@ def _softmax(mode, func, args, kwargs):
     return g - y.exp() * total(g)                          # _log_softmax_backward_data
 
 
+def _offset(x, d: int) -> int:
+    """Where this rank's shard of ``x`` starts along dim ``d``: DTensor's
+    shards are ``torch.chunk``'s, mesh dim within mesh dim."""
+    start, size = 0, x.shape[d]
+    for i, p in enumerate(x.placements):
+        if _shard_dim(p) == d:
+            chunk = -(-size // x.device_mesh.size(i))
+            r = x.device_mesh.get_local_rank(i)
+            start, size = start + r * chunk, max(0, min(chunk, size - r * chunk))
+    return start
+
+
 def _take(mode, func, args, kwargs):
-    """``gather`` (and the ``scatter_add`` of its backward) along a dim
-    sharded over one mesh dim, as GSPMD partitions it: each rank takes
-    (or adds into) the entries of its own range, an index elsewhere
-    giving zero; the gathered values are summed over that mesh dim (an
-    all-reduce of the index's shape) and a scatter needs nothing."""
+    """``gather`` and ``scatter_add`` (a gather's backward, a count) as
+    GSPMD partitions them.  Along a dim sharded over one mesh dim: each
+    rank takes (or adds into) the entries of its own range, an index
+    elsewhere giving zero; the gathered values are summed over that mesh
+    dim (an all-reduce of the index's shape) and a scatter needs nothing.
+    A scatter-add along an unsharded dim of updates that mesh dims shard:
+    each rank adds its updates into zeros, the sums are all-reduced and
+    added to the destination."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     x, dim, index = args[:3]
-    dim %= x.ndim
     src = args[3] if len(args) > 3 else None
+    if (kwargs or not isinstance(index, DTensor)
+            or (src is not None and not isinstance(src, DTensor))):
+        return NotImplemented
+    mesh = index.device_mesh
+    dim %= index.ndim
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    if src is not None and not any(_shard_dim(p) == dim for p in x.placements):
+        # a scatter-add along an unsharded dim: where the updates are
+        # sharded along it, each rank adds its own into zeros and the sums
+        # are all-reduced; along another dim, the destination is sliced
+        # alike and each rank adds into its own slice
+        want_x, want_i, summed = [], [], set()
+        for i, (p, q) in enumerate(zip(x.placements, index.placements)):
+            d = _shard_dim(q)
+            if p.is_partial() or q.is_partial():
+                return NotImplemented
+            if d == dim and p.is_replicate():
+                want_x.append(p)
+                want_i.append(q)
+                summed.add(i)
+            elif d is not None and p.is_replicate() and x.shape[d] == index.shape[d]:
+                want_x.append(Shard(d))
+                want_i.append(q)
+            else:
+                want_x.append(p)
+                want_i.append(p)
+        x = mode.move(x, lambda t: want_x)
+        index, src = mode.move((index, src), lambda t: want_i)
+        local = x.to_local()
+        got = torch.scatter_add(torch.zeros_like(local) if summed else local, dim,
+                                index.to_local(), src.to_local())
+        out = DTensor.from_local(got, mesh, [Partial() if i in summed else p
+                                             for i, p in enumerate(want_x)],
+                                 run_check=False, shape=x.shape, stride=x.stride())
+        return mode.move(out, _summed) + x if summed else out
     if not isinstance(x, DTensor):
         return NotImplemented
     sharded = [i for i, p in enumerate(x.placements) if _shard_dim(p) == dim]
-    if (kwargs or not all(isinstance(t, DTensor) for t in args[:4:2])
-            or (src is not None and not isinstance(src, DTensor))
-            or len(sharded) != 1 or not isinstance(x.placements[sharded[0]], Shard)):
+    if len(sharded) != 1 or type(x.placements[sharded[0]]) is not Shard:
         return NotImplemented
-    i, mesh = sharded[0], x.device_mesh
-    n, size = mesh.size(i), x.shape[dim]
-    if size % n:
-        return NotImplemented
-    rest = [Replicate() if j == i else p for j, p in enumerate(x.placements)]
-    index = index.redistribute(mesh, rest)
-    width = size // n
-    local = index.to_local() - mesh.get_local_rank(i) * width
-    inside = (local >= 0) & (local < width)
-    local = local.clamp(0, width - 1)
+    i = sharded[0]
+    rest = _replicated(x, {i})
+    index = mode.move(index, lambda t: rest)
+    local = index.to_local() - _offset(x, dim)
+    inside = (local >= 0) & (local < x.to_local().shape[dim])
+    local = local.clamp(0, max(x.to_local().shape[dim] - 1, 0))
     if src is None:                                        # gather
         got = torch.gather(x.to_local(), dim, local)
         got = torch.where(inside, got, torch.zeros((), dtype=got.dtype, device=got.device))
         out = DTensor.from_local(got, mesh, [Partial() if j == i else p
                                              for j, p in enumerate(rest)],
                                  run_check=False, shape=index.shape, stride=index.stride())
-        return _sum_partials(out)
-    src = src.redistribute(mesh, rest).to_local()          # scatter_add
+        return mode.move(out, _summed)
+    src = mode.move(src, lambda t: rest).to_local()        # scatter_add
     src = torch.where(inside, src, torch.zeros((), dtype=src.dtype, device=src.device))
     got = torch.scatter_add(x.to_local(), dim, local, src)
     return DTensor.from_local(got, mesh, x.placements, run_check=False, shape=x.shape,
                               stride=x.stride())
 
 
+def _put(mode, func, args, kwargs):
+    """``scatter`` of values (a sort's or top-k's backward, into zeros): as
+    GSPMD propagates a scatter's updates into its operand, the result lies
+    as the values do, gathered where they shard the scattered dim; the
+    destination and the index move to that layout and each rank writes its
+    own shard.  The destination's own layout (a ``new_zeros`` or a plain
+    ``zeros``, by torch version) does not enter."""
+    from torch.distributed.tensor import DTensor, Replicate
+    x, dim, index, src = args[:4]
+    if (kwargs or len(args) > 4 or not isinstance(src, DTensor)
+            or index.shape != src.shape or index.ndim != x.ndim):
+        return NotImplemented
+    mesh = src.device_mesh
+    x, index = [t if isinstance(t, DTensor) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False) for t in (x, index)]
+    dim %= x.ndim
+    if any(index.shape[d] != x.shape[d] for d in range(x.ndim) if d != dim):
+        return NotImplemented
+    want = [p if _shard_dim(p) != dim else Replicate() for p in src.placements]
+    x, index, src = mode.move((x, index, src), lambda t: want)
+    got = func(x.to_local(), dim, index.to_local(), src.to_local())
+    return DTensor.from_local(got, mesh, want, run_check=False, shape=x.shape,
+                              stride=_contiguous(x.shape, got))
+
+
 def _lookup(mode, func, args, kwargs):
-    """``table[ids]`` with the table's rows sharded over one mesh dim, as
-    GSPMD partitions an embedding: each rank looks up the ids of its own
-    rows, zero for the others, and the rows are summed over that mesh dim
+    """``x[ids, ...]`` (``index.Tensor`` on leading dims: an embedding
+    lookup, a decode step's rows) as GSPMD partitions a gather: where one
+    mesh dim shards an indexed dim, each rank looks up the ids of its own
+    range, zero for the others, and the rows are summed over that mesh dim
     (an all-reduce of the output: one rank's row is not zero, so the sum
-    is exact in the table's type)."""
+    is exact in the table's type); the output lies as the ids do, and as
+    ``x`` on its other dims."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    table, indices = args[0], args[1]
-    if (kwargs or not isinstance(table, DTensor) or len(indices) != 1
-            or not isinstance(indices[0], DTensor)):
+    x, indices = args[0], list(args[1])
+    if (kwargs or not isinstance(x, DTensor) or None in indices
+            or any(t.dtype == torch.bool for t in indices)):
         return NotImplemented
-    rows = [i for i, p in enumerate(table.placements) if _shard_dim(p) == 0]
-    mesh, ids = table.device_mesh, indices[0]
-    if (len(rows) != 1 or not isinstance(table.placements[rows[0]], Shard)
-            or table.shape[0] % mesh.size(rows[0])
-            or any(_shard_dim(p) not in (None, 0) and _shard_dim(q) is not None
-                   for p, q in zip(table.placements, ids.placements))):
-        return NotImplemented
-    i = rows[0]
-    ids = ids.redistribute(mesh, [Replicate() if j == i else p
-                                  for j, p in enumerate(ids.placements)])
-    # the output's layout: the ids', and the table's sharded feature dim
-    out_p = [Partial() if j == i else Shard(ids.ndim) if _shard_dim(p) == 1 else q
-             for j, (p, q) in enumerate(zip(table.placements, ids.placements))]
-    width = table.shape[0] // mesh.size(i)
-    local = ids.to_local() - mesh.get_local_rank(i) * width
-    inside = (local >= 0) & (local < width)
-    local = local.clamp(0, width - 1)
-    inside = inside.reshape(*inside.shape, *[1] * (table.ndim - 1))
-    got = table.to_local()[local]
-    got = torch.where(inside, got, torch.zeros((), dtype=got.dtype, device=got.device))
-    shape = (*ids.shape, *table.shape[1:])
+    k, mesh = len(indices), x.device_mesh
+    shape_ids = torch.broadcast_shapes(*(t.shape for t in indices))
+    nb = len(shape_ids)
+    lead = next((t for t in indices if isinstance(t, DTensor) and t.shape == shape_ids), None)
+    ranged, id_p, out_p = set(), [], []
+    for i, p in enumerate(x.placements):
+        d, q = _shard_dim(p), lead.placements[i] if lead is not None else Replicate()
+        if p.is_partial():
+            return NotImplemented
+        if d is not None and d < k:                    # an indexed dim: masked, then summed
+            if type(p) is not Shard:
+                return NotImplemented
+            ranged.add(d)
+            id_p.append(Replicate())
+            out_p.append(Partial())
+        elif d is not None:                            # a looked-up dim keeps its shard
+            id_p.append(Replicate())
+            out_p.append(Shard(d - k + nb))
+        else:
+            id_p.append(q if _shard_dim(q) is not None else Replicate())
+            out_p.append(id_p[-1])
+
+    def placed(t):                                     # an index's own layout
+        return [Shard(_shard_dim(p) - (nb - t.ndim))
+                if _shard_dim(p) is not None and _shard_dim(p) >= nb - t.ndim
+                and t.shape[_shard_dim(p) - (nb - t.ndim)] > 1 else Replicate() for p in id_p]
+
+    local_ids, inside = [], None
+    for d, t in enumerate(indices):
+        li = mode.move(t, placed).to_local() if isinstance(t, DTensor) else t
+        if d in ranged:
+            held = x.to_local().shape[d]
+            li = li - _offset(x, d)
+            ok = (li >= 0) & (li < held)
+            inside = ok if inside is None else inside & ok
+            li = li.clamp(0, max(held - 1, 0))
+        local_ids.append(li)
+    got = x.to_local()[tuple(local_ids)]
+    if inside is not None:
+        inside = inside.reshape(*inside.shape, *[1] * (got.ndim - inside.ndim))
+        got = torch.where(inside, got, torch.zeros((), dtype=got.dtype, device=got.device))
+    shape = (*shape_ids, *x.shape[k:])
     out = DTensor.from_local(got, mesh, out_p, run_check=False, shape=shape,
-                             stride=torch.empty(shape, device="meta").stride())
-    return _sum_partials(out)
+                             stride=_contiguous(shape))
+    return mode.move(out, _summed)
+
+
+def _scatter(mode, func, args, kwargs):
+    """``index_put(dst, ids, values)`` out of place (JAX's
+    ``zeros.at[ids].set(values)``), as GSPMD partitions a scatter into
+    unsharded rows: the ids are replicated, and a dim that ``dst`` does
+    not shard where the values do is sharded in the output too (a slice of
+    ``dst``, for nothing); each rank writes its shard of every row.  An
+    accumulating write is ``_accumulate``'s."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    dst, indices, values = args[:3]
+    if len(args) > 3 and args[3]:
+        return _accumulate(mode, func, args, kwargs)
+    if (kwargs or not isinstance(dst, DTensor) or not isinstance(values, DTensor)
+            or None in indices):
+        return NotImplemented
+    k = len(indices)
+    nb = len(torch.broadcast_shapes(*(t.shape for t in indices)))
+    if values.ndim != nb + dst.ndim - k:
+        return NotImplemented
+    out_p, val_p = list(dst.placements), []
+    for i, (p, q) in enumerate(zip(dst.placements, values.placements)):
+        d, j = _shard_dim(p), _shard_dim(q)
+        if p.is_partial() or d is not None and d < k:
+            return NotImplemented
+        if d is not None:
+            val_p.append(Shard(d - k + nb))
+        elif (j is not None and j >= nb and values.shape[j] > 1
+              and values.shape[j] == dst.shape[j - nb + k]):
+            out_p[i] = Shard(j - nb + k)
+            val_p.append(q)
+        else:
+            val_p.append(Replicate())
+    dst, values = mode.move(dst, lambda t: out_p), mode.move(values, lambda t: val_p)
+    ids = [mode.move(t, _replicated).to_local() if isinstance(t, DTensor) else t
+           for t in indices]
+    local = torch.index_put(dst.to_local(), ids, values.to_local())
+    return DTensor.from_local(local, dst.device_mesh, out_p, run_check=False,
+                              shape=dst.shape, stride=dst.stride())
 
 
 def _accumulate(mode, func, args, kwargs):
@@ -429,8 +985,7 @@ def _accumulate(mode, func, args, kwargs):
     embedding's gradient) into a replicated table, as GSPMD partitions a
     scatter-add: each rank adds the updates it holds into zeros, the sums
     over the mesh dims that shard the updates are all-reduced, and the
-    table adds them (DTensor's strategies for it differ between torch
-    versions)."""
+    table adds them."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
     table, indices, values = args[:3]
     if (kwargs or len(args) < 4 or not args[3] or len(indices) != 1
@@ -441,59 +996,133 @@ def _accumulate(mode, func, args, kwargs):
     if any(_shard_dim(p) is not None and _shard_dim(p) >= ids.ndim for p in ids.placements):
         return NotImplemented
     # the updates lie as their ids do
-    values = values.redistribute(mesh, [p if _shard_dim(p) is not None else Replicate()
-                                        for p in ids.placements])
+    values = mode.move(values, lambda t: [p if _shard_dim(p) is not None else Replicate()
+                                          for p in ids.placements])
     local = table.to_local()
     delta = torch.index_put(torch.zeros_like(local), [ids.to_local()], values.to_local(), True)
     delta = DTensor.from_local(delta, mesh, [Partial() if _shard_dim(p) is not None
                                              else Replicate() for p in ids.placements],
                                run_check=False, shape=table.shape, stride=table.stride())
-    return table + _sum_partials(delta)
+    return table + mode.move(delta, _summed)
 
 
-def _pointwise(mode, func, args, kwargs):
-    """A pointwise op on operands that lie differently: the largest
-    operand (the first of equals: the residual stream in ``x + y``)
-    keeps its layout and the others move to it, as GSPMD propagates the
-    activation's sharding to a bias, where DTensor's cost model may
-    instead slice the activation to a sharded bias's layout."""
+def _write_into(mode, func, args, kwargs):
+    """An in-place indexed write (``index_put_``: a decode step's cache
+    column) into a sharded tensor, as GSPMD partitions a scatter: the
+    indices are replicated, the written values lie as the destination on
+    its dims that are not indexed and are replicated over the mesh dims
+    that shard an indexed dim (each rank writing the entries that fall in
+    its own range), all in place.  On meta tensors the write is checked on
+    meta tensors of the global shapes.  An accumulating write is a
+    scatter-add (``_accumulate``), made in place."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
-    dts = [a for a in args if isinstance(a, DTensor)]
-    if (kwargs or len(dts) < 2 or any(d.device_mesh != dts[0].device_mesh for d in dts)
-            or any(not (isinstance(p, Shard) or p.is_replicate())
-                   for d in dts for p in d.placements)):
+    dst, indices, values = args[:3]
+    if len(args) > 3 and args[3] and isinstance(dst, DTensor):
+        out = _accumulate(mode, func, args, kwargs)
+        if out is not NotImplemented:
+            dst.to_local().copy_(out.to_local())
+            return dst
+    if (kwargs or not isinstance(dst, DTensor) or not dst.to_local().is_meta
+            or not isinstance(values, DTensor) or None in indices):
         return NotImplemented
-    lead = max(dts, key=lambda d: d.numel())          # max keeps the first of equals
+    k = len(indices)
+    nb = len(torch.broadcast_shapes(*(t.shape for t in indices)))
+    lead = values.ndim - (dst.ndim - k)             # the values' dims the ids index
+    if lead < 0 or any(p.is_partial() for p in dst.placements):
+        return NotImplemented
+    want = []
+    for p in dst.placements:
+        d = _shard_dim(p)
+        j = None if d is None or d < k else d - k + lead
+        want.append(Shard(j) if j is not None and values.shape[j] > 1 else Replicate())
+    mode.move(values, lambda t: want)
+    mode.move(indices, _replicated)
+    func(*_global_meta(args), **{k: _global_meta(v) for k, v in kwargs.items()})
+    return dst
 
-    def place(t):
-        out = []
-        for p in lead.placements:
-            dim = None if p.is_replicate() else p.dim - (lead.ndim - t.ndim)
-            out.append(Shard(dim) if dim is not None and dim >= 0 and t.shape[dim] > 1
-                       else Replicate())
-        return out
 
-    return func(*[_redistribute(a, place) if isinstance(a, DTensor) else a for a in args])
+def _copy(mode, func, args, kwargs):
+    """``dst.copy_(src)``: ``src`` moves to ``dst``'s layout (as a pointwise
+    operand, ``_pointwise``) and each rank copies into its own shard."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    dst, src = args[0], args[1]
+    if (len(args) > 2 or kwargs or not isinstance(dst, DTensor) or not isinstance(src, DTensor)
+            or src.ndim > dst.ndim):
+        return NotImplemented
+    want = []
+    for p in dst.placements:
+        d = _shard_dim(p)
+        d = None if d is None else d - (dst.ndim - src.ndim)
+        want.append(Shard(d) if d is not None and d >= 0 and src.shape[d] > 1
+                    else Replicate() if not p.is_partial() else None)
+    if None in want:
+        return NotImplemented
+    src = mode.move(src, lambda t: want)
+    dst.to_local().copy_(src.to_local())
+    return dst
 
 
 class DryRunMode(TorchDispatchMode):
     """Counts, per device, the collectives' result bytes by kind and the
-    products' operations, and places the ops whose placement DTensor
-    would leave to its cost model or cannot make (see the module
-    docstring).
+    products' operations, and places the ops that move bytes or change a
+    placement (see the module docstring); the DTensor ops a rule issues
+    are placed by the rules in turn.
 
-    A DTensor op is handed to DTensor (``NotImplemented`` on the nested
-    call), with this mode active again, so that the local ops and the
-    collectives DTensor issues for it come back here on local tensors."""
+    Every move a rule makes is counted by ``move`` as the collective GSPMD
+    issues for it, and made by DTensor's redistribution uncounted
+    (``_quiet``).  An op no rule places is handed to DTensor (``dtensor``:
+    ``NotImplemented`` on the nested call), with this mode active again,
+    so that its local ops and any collective DTensor's own strategy
+    issues for it come back here on local tensors: such a collective is
+    counted, and its op in ``dtensor_ops``.  A collective of the step's
+    own (the EP combine's) is counted alone."""
 
     def __init__(self):
         super().__init__()
         self.collective_bytes: Counter = Counter()
         self.collective_calls: Counter = Counter()
+        self.dtensor_ops: Counter = Counter()
         self.resharded_ops: Counter = Counter()
         self.replicated_ops: Counter = Counter()
         self.matmul_flops = 0
-        self._in_dtensor = 0
+        self._defer = 0
+        self._quiet = 0
+        self._ops: list = []
+
+    def count(self, kind: str, nbytes: int) -> None:
+        if nbytes:
+            self.collective_bytes[kind] += nbytes
+            self.collective_bytes["total"] += nbytes
+            self.collective_calls[kind] += 1
+
+    def move(self, a, placements_of, count: bool = True):
+        """Every DTensor in ``a`` redistributed to ``placements_of(dtensor)``,
+        its collectives counted as ``_moves`` gives them (unless not
+        ``count``)."""
+        from torch.distributed.tensor import DTensor
+        if isinstance(a, DTensor):
+            want = tuple(placements_of(a))
+            if want == tuple(a.placements):
+                return a
+            if count:
+                for kind, nb in _moves(a, want):
+                    self.count(kind, nb)
+            self._quiet += 1
+            try:
+                return a.redistribute(a.device_mesh, want)
+            finally:
+                self._quiet -= 1
+        if isinstance(a, (list, tuple)):
+            return type(a)(self.move(x, placements_of, count) for x in a)
+        return a
+
+    def dtensor(self, func, args, kwargs):
+        """``func`` on these arguments as DTensor's own strategy runs it."""
+        self._defer += 1
+        try:
+            return func(*args, **kwargs)
+        finally:
+            self._defer -= 1
 
     def _attempt(self, func, args, kwargs):
         """``func`` on these arguments, or None if DTensor has no strategy
@@ -501,15 +1130,19 @@ class DryRunMode(TorchDispatchMode):
         (an IndexError in some torch versions' redistribution planner):
         the collectives of a failed attempt are not counted (an error of
         the op itself comes back from the replicated run)."""
-        saved = (self.collective_bytes.copy(), self.collective_calls.copy(), self.matmul_flops)
+        saved = (self.collective_bytes.copy(), self.collective_calls.copy(),
+                 self.dtensor_ops.copy(), self.matmul_flops)
         try:
-            return func(*args, **kwargs), True
+            return self.dtensor(func, args, kwargs), True
         except (RuntimeError, NotImplementedError, IndexError):
-            self.collective_bytes, self.collective_calls, self.matmul_flops = saved
+            (self.collective_bytes, self.collective_calls, self.dtensor_ops,
+             self.matmul_flops) = saved
             return None, False
 
     def _place(self, func, args, kwargs):
         rule = _RULES.get(func)
+        if rule is None and torch.Tag.pointwise in func.tags:
+            rule = _pointwise
         if rule is not None:
             out = rule(self, func, args, kwargs)
             if out is not NotImplemented:
@@ -519,41 +1152,30 @@ class DryRunMode(TorchDispatchMode):
             # a reduction over a sharded dim leaves partial sums: GSPMD sums
             # them at once, where DTensor leaves them to the next op, whose
             # strategy for them moves with the torch version
-            return out if func._schema.is_mutable else _redistribute(out, _summed)
-        if func._schema.is_mutable and args[0].to_local().is_meta:
-            # an in-place write (a decode step's cache column): each rank
-            # writes its own shard where it lies, as GSPMD partitions a
-            # scatter; only the written values and indices are replicated.
-            # The op runs on meta tensors of the global shapes, which
-            # checks them
-            self.resharded_ops[str(func)] += 1
-            func(*_global_meta(args), **{k: _global_meta(v) for k, v in kwargs.items()})
-            _replicate((args[1:], tuple(kwargs.values())))
-            return args[0]
-        # replicate over one mesh dim, the last first (a view that splits
-        # a dim sharded over "model" unevenly: GQA's head grouping)
+            return out if func._schema.is_mutable else self.move(out, _summed)
+        # replicate over one mesh dim, the last first
         dts = _dtensors((args, tuple(kwargs.values())))
         one_mesh = all(d.device_mesh == dts[0].device_mesh
                        and len(d.placements) == dts[0].device_mesh.ndim for d in dts)
         for i in reversed(range(dts[0].device_mesh.ndim if one_mesh else 0)):
             if all(d.placements[i].is_replicate() for d in dts):
                 continue
-            rargs = _replicate(args, {i})
-            out, ok = self._attempt(func, rargs, {k: _replicate(v, {i})
+            rargs = self.move(args, lambda t: _replicated(t, {i}))
+            out, ok = self._attempt(func, rargs, {k: self.move(v, lambda t: _replicated(t, {i}))
                                                   for k, v in kwargs.items()})
             if ok:
                 self.resharded_ops[str(func)] += 1
                 return self._write_back(func, args, rargs, out)
         self.replicated_ops[str(func)] += 1
-        rargs = _replicate(args)
-        out = func(*rargs, **{k: _replicate(v) for k, v in kwargs.items()})
+        rargs = self.move(args, _replicated)
+        out = self.dtensor(func, rargs, {k: self.move(v, _replicated)
+                                         for k, v in kwargs.items()})
         return self._write_back(func, args, rargs, out)
 
-    @staticmethod
-    def _write_back(func, args, rargs, out):
+    def _write_back(self, func, args, rargs, out):
         if func._schema.is_mutable:          # write back in the original layout
             dst = args[0]
-            dst.copy_(rargs[0].redistribute(dst.device_mesh, dst.placements))
+            dst.to_local().copy_(self.move(rargs[0], lambda t: dst.placements).to_local())
             return dst
         return out
 
@@ -573,26 +1195,28 @@ class DryRunMode(TorchDispatchMode):
             args[0]._local_tensor.detach_()
             return args[0]
         if any(issubclass(t, DTensor) for t in types):
-            if self._in_dtensor:
+            if self._defer:
                 return NotImplemented
-            self._in_dtensor += 1
+            self._ops.append(func)
             try:
                 # below autograd: what the op runs records no graph (the
                 # op's own node is recorded above this mode)
                 with self, torch.no_grad():
                     return self._place(func, args, kwargs)
             finally:
-                self._in_dtensor -= 1
+                self._ops.pop()
         out = func(*args, **kwargs)
         packet = func._overloadpacket
         kind = _COLLECTIVES.get(packet.__name__)
         if kind is not None:
-            # a functional collective returns its result; c10d's ops (named
-            # with a trailing "_") write it into their first argument
-            nb = _nbytes(args[0] if packet.__name__.endswith("_") else out)
-            self.collective_bytes[kind] += nb
-            self.collective_bytes["total"] += nb
-            self.collective_calls[kind] += 1
+            if not self._quiet:
+                # the step's own (the EP combine's), or issued by DTensor's
+                # own strategy for the op being placed; a functional
+                # collective returns its result, c10d's ops (named with a
+                # trailing "_") write it into their first argument
+                self.count(kind, _nbytes(args[0] if packet.__name__.endswith("_") else out))
+                if self._ops:
+                    self.dtensor_ops[str(self._ops[-1])] += 1
         elif packet in flop_registry:
             self.matmul_flops += int(flop_registry[packet](*args, **kwargs, out_val=out))
         return out
@@ -600,13 +1224,36 @@ class DryRunMode(TorchDispatchMode):
 
 _aten = torch.ops.aten
 _RULES = {_aten.mm.default: _product, _aten.bmm.default: _product,
+          _aten.view.default: _view, _aten._unsafe_view.default: _view,
           _aten._softmax.default: _softmax, _aten._log_softmax.default: _softmax,
           _aten._softmax_backward_data.default: _softmax,
           _aten._log_softmax_backward_data.default: _softmax,
           _aten.gather.default: _take, _aten.scatter_add.default: _take,
-          _aten.index.Tensor: _lookup, _aten.index_put.default: _accumulate,
-          **{op: _pointwise for op in (_aten.add.Tensor, _aten.sub.Tensor, _aten.mul.Tensor,
-                                       _aten.div.Tensor, _aten.where.self)}}
+          _aten.scatter.src: _put, _aten.floor_divide.default: _pointwise,
+          _aten.index.Tensor: _lookup, _aten.index_put.default: _scatter,
+          _aten.index_put_.default: _write_into, _aten.copy_.default: _copy,
+          _aten.cat.default: _cat, _aten.stack.default: _cat,
+          **{op: _reduce for op in (_aten.sum.dim_IntList, _aten.sum.default,
+                                    _aten.mean.dim, _aten.mean.default, _aten.amax.default)},
+          **{op: _dims for op in (_aten.permute.default, _aten.transpose.int, _aten.t.default,
+                                  _aten.unsqueeze.default, _aten.squeeze.default,
+                                  _aten.squeeze.dim, _aten.squeeze.dims, _aten.select.int,
+                                  _aten.expand.default, _aten.alias.default)},
+          **{op: _fresh for op in (_aten.new_zeros.default, _aten.new_empty.default,
+                                   _aten.new_ones.default, _aten.new_full.default,
+                                   _aten.zeros_like.default, _aten.ones_like.default,
+                                   _aten.empty_like.default, _aten.full_like.default)},
+          _aten.select_backward.default: _unselect, _aten.unbind.int: _unbind,
+          _aten.index_select.default: _index_select,
+          _aten.constant_pad_nd.default: _dim_op("collective-permute", _pad_dims, 2),
+          _aten.slice.Tensor: _dim_op("collective-permute", _slice_dims, 2),
+          _aten.slice_backward.default: _dim_op("collective-permute",
+                                                lambda a, k: (a[2],), 2),
+          _aten.flip.default: _dim_op("collective-permute", lambda a, k: a[1]),
+          _aten.cumsum.default: _dim_op("all-gather", lambda a, k: (a[1],)),
+          _aten.sort.default: _dim_op("all-gather",
+                                      lambda a, k: (a[1] if len(a) > 1 else -1,)),
+          _aten.sort.stable: _dim_op("all-gather", lambda a, k: (k.get("dim", -1),))}
 
 
 @contextlib.contextmanager
@@ -789,6 +1436,7 @@ def run_step(fn, args, ctx: DistContext) -> dict:
             "collective_bytes": dict(mode.collective_bytes),
             "collective_calls": dict(mode.collective_calls),
             "matmul_flops": mode.matmul_flops,
+            "dtensor_ops": dict(mode.dtensor_ops),
             "resharded_ops": dict(mode.resharded_ops),
             "replicated_ops": dict(mode.replicated_ops)}
 

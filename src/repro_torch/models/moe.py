@@ -116,8 +116,7 @@ def experts(xf: torch.Tensor, topw: torch.Tensor, topi: torch.Tensor, wg: torch.
     y_sorted = y_buf[torch.clamp(e_sorted, max=E_loc - 1) * C
                      + torch.clamp(pos_in_e, max=C - 1)]
     y_sorted = torch.where(keep[:, None], y_sorted, y_sorted.new_zeros(()))
-    y_flat = xf.new_empty((T * k, d))
-    y_flat[sort_idx] = y_sorted.to(xf.dtype)               # sort_idx is a permutation
+    y_flat = xf.new_zeros((T * k, d)).index_put((sort_idx,), y_sorted.to(xf.dtype))
     y = y_flat.reshape(T, k, d) * topw[..., None].to(xf.dtype)
     y = y.float().sum(dim=1) if partial else y.sum(dim=1)
     return y, counts[:E_loc]

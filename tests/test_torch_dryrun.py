@@ -38,7 +38,8 @@ from repro_torch.configs.base import get_config
 from repro_torch.launch import dryrun as D
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KINDS = {"all-reduce", "all-gather", "reduce-scatter", "all-to-all", "total"}
+KINDS = {"all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute",
+         "total"}
 
 
 def _smoke(arch, shape, moe="gspmd"):
