@@ -637,8 +637,12 @@ class Orchestrator:
             outs = self._outputs_pending.get(ev.req_id)
             if outs is None or stage not in outs:
                 return
+            now = time.perf_counter()
             if req.first_output_time is None:
-                req.first_output_time = time.perf_counter()
+                req.first_output_time = now
+            if ev.kind == "chunk":
+                tokens = ev.payload.get("tokens") if isinstance(ev.payload, dict) else None
+                req.chunk_times.append((now, ev.t_emit, 0 if tokens is None else len(tokens)))
             if ev.kind == "finished" or (ev.kind == "chunk" and ev.is_last):
                 req.outputs.setdefault(stage, []).append(ev.payload)
                 req.mark_stage_end(stage)
@@ -782,6 +786,15 @@ class Orchestrator:
                 m["prefix_hit_rate"] = cached / total if total else 0.0
                 m["full_hit_rate"] = full_blk / total if total else 0.0
                 m["partial_hit_rate"] = part / total if total else 0.0
+            phases: Dict[str, float] = {}
+            for eng in self._live_engines(n):
+                totals = getattr(eng, "step_totals", None)
+                for k, v in (totals.snapshot().items() if totals else ()):
+                    phases[k] = phases.get(k, 0.0) + v
+            if phases:
+                # AR engines: seconds of each step phase and the host reads
+                # (metrics.StepTotals), summed over the live replicas
+                m["step_phases"] = phases
             if m["n_replicas"] > 1 or len(self._stage_metrics[n]) > 1:
                 m["replicas"] = self._replica_snapshots(n)
             out[n] = m

@@ -26,6 +26,10 @@ class Request:
     arrival_time: float = field(default_factory=time.perf_counter)
     completion_time: Optional[float] = None
     first_output_time: Optional[float] = None   # TTFT of the FINAL output
+    # (delivered, emitted, tokens) of each output-stage chunk, in the order
+    # the router handed them over: ``perf_counter`` at delivery, the
+    # ``StageEvent.t_emit`` of the chunk (None: its engine stamps none)
+    chunk_times: List[tuple] = field(default_factory=list)
     stage_spans: Dict[str, List[float]] = field(default_factory=dict)
     # per-stage queueing delays (submit -> engine admission), seconds; a
     # stage fed by a streaming edge collects one sample per chunk
@@ -70,3 +74,4 @@ class StageEvent:
     stage: str = ""
     chunk_index: int = 0
     is_last: bool = False
+    t_emit: Optional[float] = None    # perf_counter where the engine built it

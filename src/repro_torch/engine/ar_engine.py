@@ -10,6 +10,11 @@ On a CUDA device each engine issues its work on a CUDA stream of its own
 tokens, a PD payload) wait for this engine's kernels only, not for those
 of another stage's thread in the same process.  Every payload an engine
 emits is host data.
+
+Each step runs under a ``core.metrics.StepTrace``: its phases (schedule,
+admit, prefill, decode inputs, the model's decode, sampling, emission)
+are timed on the host clock, its device->host reads are timed and
+counted, and the engine keeps their totals in ``step_totals``.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import metrics
 from repro_torch.core.request import StageEvent
 from repro_torch.device import engine_stream, on_stream
 from repro_torch.engine.kv_cache import (PagedKVConfig, embed_prefix_keys,
@@ -53,7 +59,6 @@ class _ReqRuntime:
     last_logits: Optional[torch.Tensor] = None
     streamed: int = 0
     chunk_index: int = 0
-    t_first_sched: Optional[float] = None
     kv_seed: Optional[tuple] = None              # (k, v, kv_dtype, prompt_len) — PD
 
 
@@ -91,7 +96,6 @@ class AREngine:
                                    chunk_size,
                                    enable_prefix_cache=self.enable_prefix_cache,
                                    prefix_index=prefix_index)
-        self._seed_events = 0           # pages warm-seeded into this replica
         if cfg.arch_type in ("ssm", "hybrid"):
             self.runner: Any = StateRunner(cfg, params, self.kv, max_batch)
             self._paged = False
@@ -110,8 +114,11 @@ class AREngine:
         self._rt: Dict[int, _ReqRuntime] = {}
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.steps = 0
-        self.busy_time = 0.0
-        # PD: prompt KV injected, and the seconds it took (copy included)
+        self.busy_time = 0.0                # the steps' seconds (StepTrace)
+        self.step_totals = metrics.StepTotals()
+        # PD: prompt KV injected, and the host seconds of the admissions
+        # that injected it (engine.admit phases: the copies from host memory
+        # end in PyTorch's own wait on the stream; the page writes are queued)
         self.kv_injects = 0
         self.kv_inject_time = 0.0
 
@@ -137,7 +144,8 @@ class AREngine:
         else:
             tokens = np.asarray(inputs["tokens"], np.int32)
             rt.prompt_tokens = [int(t) for t in tokens]
-            pe = np.asarray(self.runner.embed(tokens))
+            with metrics.reads_into(self.step_totals.enqueue_reads):
+                pe = np.asarray(self.runner.embed(tokens))
         if self.preprocess is not None:
             extra = self.preprocess(data, {"phase": "prefill",
                                            "prompt_len": pe.shape[0]})
@@ -215,8 +223,8 @@ class AREngine:
     # ------------------------------------------------------------------
     def _sample(self, req_id: int, logits: torch.Tensor) -> int:
         sp = self.scheduler.running[req_id].sampling
-        return int(sample_tokens(logits[None], sp.temperature, sp.top_k,
-                                 self._gen)[0])
+        return int(metrics.to_cpu(sample_tokens(logits[None], sp.temperature,
+                                                sp.top_k, self._gen)[0]))
 
     def _decode_embed_row(self, req_id: int) -> np.ndarray:
         rt = self._rt[req_id]
@@ -310,12 +318,12 @@ class AREngine:
             alloc.publish(hit + pages, hashes, keys)
             alloc.free(rid)             # published pages park in the LRU
             seeded += n_new
-        self._seed_events += seeded
         return seeded
 
     def _emit_progress(self, req_id: int, events: List[StageEvent],
                        finished: bool) -> None:
         rt = self._rt[req_id]
+        t_emit = time.perf_counter()
         if self.stream_chunk > 0:
             while (len(rt.tokens) - rt.streamed >= self.stream_chunk
                    or (finished and rt.streamed < len(rt.tokens))):
@@ -329,7 +337,7 @@ class AREngine:
                 events.append(StageEvent(req_id, "chunk", payload,
                                          stage=self.name,
                                          chunk_index=rt.chunk_index,
-                                         is_last=is_last))
+                                         is_last=is_last, t_emit=t_emit))
                 rt.chunk_index += 1
                 rt.streamed = end
                 if end == len(rt.tokens):
@@ -348,7 +356,7 @@ class AREngine:
                 payload.update({"kv_k": k, "kv_v": v, "kv_dtype": kv_dtype,
                                 "prompt_len": seq.pos})
             events.append(StageEvent(req_id, "finished", payload,
-                                     stage=self.name))
+                                     stage=self.name, t_emit=t_emit))
 
     # ------------------------------------------------------------------
     def _spec_decode_one(self, rid: int, events: List[StageEvent]) -> bool:
@@ -373,7 +381,7 @@ class AREngine:
         logits, hidden = self.runner.prefill_chunk(
             torch.as_tensor(embp, device=self.device).to(
                 getattr(torch, self.cfg.dtype))[None], bt, seq.pos, len(toks))
-        greedy = torch.argmax(logits[:len(toks)], dim=-1).cpu().numpy()
+        greedy = metrics.to_cpu(torch.argmax(logits[:len(toks)], dim=-1)).numpy()
         acc = 0
         while acc < len(draft) and draft[acc] == int(greedy[acc]):
             acc += 1
@@ -400,10 +408,13 @@ class AREngine:
 
     def step(self) -> List[StageEvent]:
         with on_stream(self.stream):
-            return self._step()
+            tr = metrics.StepTrace(self.name, self.step_totals, "engine.schedule")
+            try:
+                return self._step(tr)
+            finally:
+                self.busy_time += tr.finish()
 
-    def _step(self) -> List[StageEvent]:
-        t0 = time.perf_counter()
+    def _step(self, tr: metrics.StepTrace) -> List[StageEvent]:
         events: List[StageEvent] = []
         plan = self.scheduler.schedule()
         # preemption (recompute mode): the victim's generated tokens (minus
@@ -420,31 +431,38 @@ class AREngine:
             if len(gen):
                 rt.prompt_embeds = np.concatenate(
                     [rt.prompt_embeds, np.asarray(self.runner.embed(gen))], 0)
-        # prefix cache copy-on-write: a request whose whole page-aligned
-        # prompt hit the cache gets a private copy of the final shared page
-        # before recomputing (and rewriting) its last token
-        if plan.cow_pairs:
-            self.runner.copy_pages([s for s, _ in plan.cow_pairs],
-                                   [d for _, d in plan.cow_pairs])
-        # PD disaggregation: inject transferred KV for newly admitted
-        # pre-filled requests before their first decode step
-        for rid in plan.admitted:
-            rt = self._rt.get(rid)
-            if rt is not None and rt.kv_seed is not None:
+        seeded = [rid for rid in plan.admitted
+                  if rid in self._rt and self._rt[rid].kv_seed is not None]
+        if plan.cow_pairs or seeded:
+            tr.phase("engine.admit")
+            # prefix cache copy-on-write: a request whose whole page-aligned
+            # prompt hit the cache gets a private copy of the final shared
+            # page before recomputing (and rewriting) its last token
+            if plan.cow_pairs:
+                self.runner.copy_pages([s for s, _ in plan.cow_pairs],
+                                       [d for _, d in plan.cow_pairs])
+            # PD disaggregation: inject transferred KV for newly admitted
+            # pre-filled requests before their first decode step
+            for rid in seeded:
+                rt = self._rt[rid]
                 k, v, kv_dtype, n = rt.kv_seed
-                t = time.perf_counter()
                 self.runner.inject_kv(
                     k, v, self.scheduler.tables.row(rid), n, kv_dtype)
-                if self.stream is not None:     # the copy's time, not its queueing
-                    self.stream.synchronize()
-                self.kv_inject_time += time.perf_counter() - t
                 self.kv_injects += 1
                 rt.kv_seed = None
+            admit_s = tr.phase(None)
+            if seeded:
+                self.kv_inject_time += admit_s
         if not plan.prefill_chunks and not plan.decode_req_ids:
             return events
         self.steps += 1
+        tr.worked = True
 
         # ---- prefill chunks (one request-chunk at a time) --------------
+        if plan.prefill_chunks:
+            one = {ch.req_id for ch in plan.prefill_chunks}
+            tr.phase("engine.prefill", one.pop() if len(one) == 1 else None)
+            tr.counts["prefill_tokens"] = sum(ch.length for ch in plan.prefill_chunks)
         for ch in plan.prefill_chunks:
             rt = self._rt[ch.req_id]
             seq = self.scheduler.running[ch.req_id]
@@ -492,6 +510,8 @@ class AREngine:
                 if self._spec_decode_one(rid, events):
                     dec_ids.remove(rid)
         if dec_ids:
+            tr.phase("engine.decode_inputs")
+            tr.counts["rows"] = len(dec_ids)
             B = self.max_batch
             d = self.cfg.d_model
             embeds = np.zeros((B, 1, d), np.float32)
@@ -508,9 +528,10 @@ class AREngine:
                 active[s] = True
                 tables[s] = self.scheduler.tables.row(rid)
             dt = getattr(torch, self.cfg.dtype)
-            logits, hidden = self.runner.decode(
-                torch.as_tensor(embeds, device=self.device).to(dt), tables,
-                positions, active)
+            embeds_t = torch.as_tensor(embeds, device=self.device).to(dt)
+            tr.phase("model.decode")
+            logits, hidden = self.runner.decode(embeds_t, tables, positions, active)
+            tr.phase("engine.sample")
             hidden_np = (to_host(hidden) if self.collect_hidden and hidden is not None
                          else None)
             # batch sampling: one call per (temperature, top_k) group
@@ -518,12 +539,14 @@ class AREngine:
             for rid in dec_ids:
                 sp = self.scheduler.running[rid].sampling
                 groups.setdefault((sp.temperature, sp.top_k), []).append(rid)
+            tr.counts["sample_groups"] = len(groups)
             sampled: Dict[int, int] = {}
             for (temp, tk), rids in groups.items():
                 rows = torch.as_tensor([slot_of[r] for r in rids],
                                        device=self.device)
-                toks = sample_tokens(logits[rows], temp, tk, self._gen).cpu()
+                toks = metrics.to_cpu(sample_tokens(logits[rows], temp, tk, self._gen))
                 sampled.update(zip(rids, toks.tolist()))
+            tr.phase("engine.emit")
             for rid in dec_ids:
                 s = slot_of[rid]
                 self.scheduler.note_decode_written(rid)
@@ -536,6 +559,4 @@ class AREngine:
                 self._emit_progress(rid, events, finished)
                 if finished:
                     self._release(rid)
-
-        self.busy_time += time.perf_counter() - t0
         return events

@@ -29,10 +29,13 @@ none.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import metrics
 from repro_torch.engine.kv_cache import (PagedKVConfig, init_kv_pages,
                                          init_kv_scale_pages)
 from repro_torch.kernels import ops, ref
@@ -44,7 +47,7 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     """A numpy copy of ``t`` (bf16 widens to f32: numpy has no bf16)."""
     if t.dtype == torch.bfloat16:
         t = t.float()
-    return t.detach().to("cpu", copy=True).numpy()
+    return metrics.to_cpu(t.detach(), copy=True).numpy()
 
 
 def kv_to_host(t: torch.Tensor) -> tuple:
@@ -53,8 +56,8 @@ def kv_to_host(t: torch.Tensor) -> tuple:
     carries bf16 weights; other types as themselves, tagged with their
     name.  The JAX package ships ``ml_dtypes`` bf16 arrays instead."""
     if t.dtype == torch.bfloat16:
-        return t.detach().view(torch.int16).to("cpu", copy=True).numpy(), "bfloat16"
-    host = t.detach().to("cpu", copy=True).numpy()
+        return metrics.to_cpu(t.detach().view(torch.int16), copy=True).numpy(), "bfloat16"
+    host = metrics.to_cpu(t.detach(), copy=True).numpy()
     return host, host.dtype.name
 
 
@@ -94,7 +97,7 @@ class PagedRunner:
         """Token embeddings as a host f32 array (the gather runs where the
         table lives; widening bf16 rows to f32 is exact)."""
         idx = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=self.device)
-        return self.params["embed"][idx].float().cpu().numpy()
+        return metrics.to_cpu(self.params["embed"][idx].float()).numpy()
 
     def _layer_pools(self, i: int):
         if self.quant:
@@ -252,6 +255,10 @@ class PagedRunner:
         bt = torch.as_tensor(tables, device=dev)
         pos_t = torch.as_tensor(positions, device=dev)[:, None]  # (B, 1)
         h = torch.as_tensor(embeds, device=dev)
+        # host time of each half of the layers (enqueueing their kernels),
+        # noted on the engine step's model.decode phase
+        attn_s = ffn_s = 0.0
+        t_ffn = time.perf_counter()
         for i, lp in enumerate(self._layers):
             hn = L.rmsnorm(lp["ln1"], h, cfg.rmsnorm_eps)
             q, k, v = L._qkv(cfg, lp["attn"], hn)
@@ -264,8 +271,13 @@ class PagedRunner:
                                     window=self._window, k_scale_pages=ksp,
                                     v_scale_pages=vsp)
             h = h + L.unproject(o.to(h.dtype), lp["attn"]["wo"])[:, None]
+            t_attn = time.perf_counter()
+            attn_s += t_attn - t_ffn
             hn = L.rmsnorm(lp["ln2"], h, cfg.rmsnorm_eps)
             h = h + L.mlp_or_moe(cfg, lp, hn)
+            t_ffn = time.perf_counter()
+            ffn_s += t_ffn - t_attn
+        metrics.note(attn_host_s=attn_s, ffn_host_s=ffn_s)
         logits = T._unembed(cfg, self.params, h)[:, 0]
         return logits, h[:, 0]
 
@@ -292,7 +304,7 @@ class StateRunner:
     def embed(self, tokens: np.ndarray) -> np.ndarray:
         """Token embeddings as a host f32 array."""
         idx = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=self.device)
-        return self.params["embed"][idx].float().cpu().numpy()
+        return metrics.to_cpu(self.params["embed"][idx].float()).numpy()
 
     @torch.no_grad()
     def prefill(self, embeds: torch.Tensor, slot: int):
