@@ -1746,13 +1746,13 @@ def tap_first_moe(torch, store: dict):
     from repro_torch.models import moe
     orig = moe.moe_forward
 
-    def first(cfg, p, x):
+    def first(cfg, p, x, routes=None):
         if "y" in store:
-            return orig(cfg, p, x)
+            return orig(cfg, p, x, routes)
         run = moe.drop_counter
         moe.drop_counter = torch.zeros((), dtype=torch.long, device=x.device)
         try:
-            y, aux = orig(cfg, p, x)
+            y, aux = orig(cfg, p, x, routes)
             store.update(x=x.float().cpu().numpy(), y=y.float().cpu().numpy(),
                          aux=float(aux), drops=int(moe.drop_counter))
             if run is not None:

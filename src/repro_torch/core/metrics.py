@@ -14,7 +14,9 @@ device->host read the engine and its runner make goes through
 ``to_cpu``, which times and counts it on the step (``wait_s``,
 ``syncs``) or, outside a step, on what ``reads_into`` names.  The
 decode layer loop's host time (``attn_host_s``, ``ffn_host_s``) reaches
-the ``model.decode`` phase through ``note``.
+the ``model.decode`` phase through ``note``; device tensors a phase
+made, read only once the work is over, reach its span through ``keep``
+(``routed_experts``, the distinct experts a decode step routed to).
 
 Costs are clock reads: no CUDA event, no synchronisation, no lock.  The
 engine's cumulative counters (``StepTotals``: seconds per phase, the
@@ -146,6 +148,8 @@ class Span:
     parent: int = 0                     # the enclosing span's id; 0: none
     req_id: Optional[int] = None
     counts: Dict[str, float] = field(default_factory=dict)
+    #: device tensors the phase kept (``keep``): reading one waits for the device
+    kept: Dict[str, torch.Tensor] = field(default_factory=dict)
 
     @property
     def seconds(self) -> float:
@@ -197,6 +201,19 @@ def note(**counts: float) -> None:
         step.note(counts)
 
 
+def keeping() -> bool:
+    """Whether this thread runs a step phase whose span will be recorded."""
+    step = getattr(_local, "step", None)
+    return enabled and step is not None and step._phase is not None
+
+
+def keep(**tensors: torch.Tensor) -> None:
+    """Keep ``tensors`` on the span of the running phase of this thread's
+    step, if one will be recorded (``keeping``)."""
+    if keeping():
+        _local.step._phase[4].update(tensors)
+
+
 def _range(name: str):
     rf = torch.autograd.profiler.record_function(name)
     rf.__enter__()
@@ -237,7 +254,7 @@ class StepTrace:
         self.reads = Reads()
         self.worked = False
         self.counts: Dict[str, float] = {}
-        self._phase: Optional[list] = None       # [name, t0, req_id, counts]
+        self._phase: Optional[list] = None       # [name, t0, req_id, counts, kept]
         self._closed: list = []
         self._outer = (getattr(_local, "step", None), getattr(_local, "reads", None))
         _local.step, _local.reads = self, self.reads
@@ -245,7 +262,7 @@ class StepTrace:
                         and _autograd_profiler._is_profiler_enabled else None)
         self.t0 = time.perf_counter()
         if first is not None:                   # opened at the step's own start
-            self._phase = [first, self.t0, None, {}]
+            self._phase = [first, self.t0, None, {}, {}]
             if self._ranges is not None:
                 self._ranges.append(_range(first))
 
@@ -255,7 +272,7 @@ class StepTrace:
         t = time.perf_counter()
         done = self._close(t)
         if name is not None:
-            self._phase = [name, t, req_id, {}]
+            self._phase = [name, t, req_id, {}, {}]
             if self._ranges is not None:
                 self._ranges.append(_range(name))
         return done
@@ -265,7 +282,7 @@ class StepTrace:
         if ph is None:
             return 0.0
         self._phase = None
-        self._closed.append((ph[0], ph[1], t, ph[2], ph[3]))
+        self._closed.append((ph[0], ph[1], t, ph[2], ph[3], ph[4]))
         if self._ranges is not None and len(self._ranges) > 1:
             self._ranges.pop().__exit__(None, None, None)
         return t - ph[1]
@@ -288,7 +305,7 @@ class StepTrace:
         if not self.worked:
             return 0.0
         tot = self.totals
-        for name, a, b, _, counts in self._closed:
+        for name, a, b, _, counts, _kept in self._closed:
             tot.phase_s[name] = tot.phase_s.get(name, 0.0) + (b - a)
             for k, v in counts.items():
                 key = f"{name}.{k}"
@@ -300,7 +317,7 @@ class StepTrace:
             out = [Span("engine.step", self.engine, self.t0, t1, sid,
                         counts={"syncs": self.reads.syncs, "wait_s": self.reads.wait_s,
                                 **self.counts})]
-            out += [Span(name, self.engine, a, b, next(_ids), sid, rid, counts)
-                    for name, a, b, rid, counts in self._closed]
+            out += [Span(name, self.engine, a, b, next(_ids), sid, rid, counts, kept)
+                    for name, a, b, rid, counts, kept in self._closed]
             spans.extend(out)
         return t1 - self.t0

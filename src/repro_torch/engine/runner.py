@@ -6,7 +6,7 @@ PagedRunner (dense / moe / vlm / audio stages):
     (chunked prefill, Sarathi-style).
   - ``decode``: batched one-token step for ALL active slots against the
     shared page pool (vLLM-style paged attention, the CUDA kernel on the
-    card).
+    card); on the card one CUDA graph of the whole step, replayed.
 
 StateRunner (ssm / hybrid stages): a constant-size recurrent state per
 slot (plus a dense KV cache per shared-attention site of the hybrid),
@@ -16,19 +16,23 @@ layer's scan is the CUDA kernel on the card.
 The page pools and state caches are updated in place (the JAX package
 donates them to its jitted steps instead).  Writes go only to the
 positions a request owns: the JAX package routes the rest to page id
-``num_pages`` and drops them, or masks inactive slots back; here they are
-never issued.  A MoE layer routes every row of its input, as the JAX
-runner does: a prefill chunk's padding and a decode batch's inactive
-slots take expert capacity too, so the same pairs are dropped.  Prefill
-runs with the f32 activations its f32 embeddings
-give (bf16 weights are promoted, as ``jnp`` promotes them); decode runs
-in the model dtype.  PagedRunner returns final-layer hidden states so
-stage-transfer functions can forward them downstream (e.g. Thinker
-hidden states → Talker); StateRunner, as in the JAX package, returns
-none.
+``num_pages`` and drops them, or masks inactive slots back; here a
+prefill chunk's padding is never written, and a decode batch's inactive
+slot writes what its first active slot writes, to the same place.  A
+MoE layer routes every row of its input, as the JAX runner does: a
+prefill chunk's padding and a decode batch's inactive slots take expert
+capacity too, so the same pairs are dropped.  Prefill runs with the f32
+activations its f32 embeddings give (bf16 weights are promoted, as
+``jnp`` promotes them); decode runs in the model dtype.  PagedRunner
+returns final-layer hidden states so stage-transfer functions can
+forward them downstream (e.g. Thinker hidden states → Talker);
+StateRunner, as in the JAX package, returns none.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+import threading
 import time
 
 import numpy as np
@@ -38,9 +42,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import metrics
 from repro_torch.engine.kv_cache import (PagedKVConfig, init_kv_pages,
                                          init_kv_scale_pages)
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, paged_attention, ref
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 from repro_torch.models import transformer as T
+from repro_torch.sharding.context import get_context
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
@@ -91,6 +97,7 @@ class PagedRunner:
         self._layers = [L.tree_map(lambda a, i=i: a[i], blocks)
                         for i in range(cfg.num_layers)]
         self._window = cfg.sliding_window if cfg.attn_variant == "swa" else 0
+        self._graph = None          # the decode step's _DecodeGraph, on a CUDA runner
 
     # ---- embeds ---------------------------------------------------------
     def embed(self, tokens: np.ndarray) -> np.ndarray:
@@ -236,50 +243,194 @@ class PagedRunner:
     @torch.no_grad()
     def decode(self, embeds, block_tables, positions, active):
         """embeds: (B, 1, d) in the model dtype; block_tables: (B, pp);
-        positions: (B,) current token's write position; active: (B,) bool
-        (host arrays).  Returns (logits (B, V), hidden (B, d)) on the
-        runner's device."""
-        cfg = self.cfg
-        page = self.kv.page_size
-        dev = self.device
-        positions = np.asarray(positions, np.int64)
+        positions: (B,) current token's write position; active: (B,) bool,
+        at least one row true (host arrays).  Returns (logits (B, V),
+        hidden (B, d)) on the runner's device.
+
+        On a CUDA runner the step is one CUDA graph of ``_decode_body``
+        (see ``_DecodeGraph``), replayed on the caller's current stream:
+        the returned tensors are then the graph's own outputs, which the
+        next call overwrites.  The body runs eagerly on the CPU, under a
+        ``DistContext`` (expert parallelism's collectives are not
+        captured) and with the plain attention (backend "ref").  Either
+        way a MoE step keeps its ``routed_experts`` on its ``model.decode``
+        span (``metrics.keep``)."""
+        positions = np.asarray(positions).astype(np.int32)
         active = np.asarray(active, bool)
         tables = np.asarray(block_tables, np.int32)
-        rows = np.nonzero(active)[0]
-        pid = torch.as_tensor(tables[rows, positions[rows] // page].astype(np.int64),
-                              device=dev)
-        slot = torch.as_tensor(positions[rows] % page, device=dev)
-        rows_t = torch.as_tensor(rows, device=dev)
-        seq_lens = torch.as_tensor(np.where(active, positions + 1, 0).astype(np.int32),
-                                   device=dev)
-        bt = torch.as_tensor(tables, device=dev)
-        pos_t = torch.as_tensor(positions, device=dev)[:, None]  # (B, 1)
-        h = torch.as_tensor(embeds, device=dev)
-        # host time of each half of the layers (enqueueing their kernels),
-        # noted on the engine step's model.decode phase
+        embeds = torch.as_tensor(embeds)
+        if not active.any():
+            # every inactive row repeats an active row's K/V write
+            raise ValueError("a decode batch needs an active row")
+        if self.device.type == "cuda" and ops.get_backend() != "ref" and get_context() is None:
+            return self._graph_decode(embeds, tables, positions, active)
+        dev = self.device
+        logits, hidden, routed, host_s = self._decode_body(
+            embeds.to(dev), torch.as_tensor(tables, device=dev),
+            torch.as_tensor(positions, device=dev), torch.as_tensor(active, device=dev))
+        metrics.note(**host_s)
+        if routed is not None:
+            metrics.keep(routed_experts=routed)
+        return logits, hidden
+
+    def _decode_body(self, h, tables, positions, active):
+        """The batched decode step on device tensors: h (B, 1, d); tables
+        (B, pp) int32; positions (B,) int32; active (B,) bool or 0/1, at
+        least one row active.  Its device work depends on (B, pp) alone and
+        nothing in it reads the device from the host, so one CUDA graph can
+        hold it.  Every row is computed and writes its K/V: an inactive row
+        writes the first active row's K/V to that row's slot, so duplicate
+        writes carry equal values and every write lands where an active
+        row's does (the JAX package sends those rows to page ``num_pages``
+        and drops them).  Returns (logits (B, V), hidden (B, d),
+        ``_routed_experts`` of the MoE layers' routes, the host seconds of
+        the layers' attention and feed-forward halves, enqueueing their
+        kernels)."""
+        cfg = self.cfg
+        page = self.kv.page_size
+        live = active.bool()
+        pos = positions.long()
+        seq_lens = torch.where(live, positions + 1, 0).to(torch.int32)
+        first = torch.argmax(live.to(torch.int32))
+        src = torch.where(live, torch.arange(h.shape[0], device=h.device), first)
+        wpos = pos[src]
+        pid = tables[src, wpos // page].long()
+        slot = wpos % page
+        pos_col = pos[:, None]                                  # (B, 1)
+        routes = [] if cfg.is_moe else None
         attn_s = ffn_s = 0.0
         t_ffn = time.perf_counter()
         for i, lp in enumerate(self._layers):
             hn = L.rmsnorm(lp["ln1"], h, cfg.rmsnorm_eps)
             q, k, v = L._qkv(cfg, lp["attn"], hn)
             if cfg.rope_theta:
-                q = L.rope(q, pos_t, cfg.rope_theta)
-                k = L.rope(k, pos_t, cfg.rope_theta)
-            self._write_kv(i, k[rows_t, 0], v[rows_t, 0], pid, slot)
+                q = L.rope(q, pos_col, cfg.rope_theta)
+                k = L.rope(k, pos_col, cfg.rope_theta)
+            self._write_kv(i, k[src, 0], v[src, 0], pid, slot)
             kp, vp, ksp, vsp = self._layer_pools(i)
-            o = ops.paged_attention(q[:, 0], kp, vp, bt, seq_lens,
+            o = ops.paged_attention(q[:, 0], kp, vp, tables, seq_lens,
                                     window=self._window, k_scale_pages=ksp,
                                     v_scale_pages=vsp)
             h = h + L.unproject(o.to(h.dtype), lp["attn"]["wo"])[:, None]
             t_attn = time.perf_counter()
             attn_s += t_attn - t_ffn
             hn = L.rmsnorm(lp["ln2"], h, cfg.rmsnorm_eps)
-            h = h + L.mlp_or_moe(cfg, lp, hn)
+            h = h + L.mlp_or_moe(cfg, lp, hn, routes)
             t_ffn = time.perf_counter()
             ffn_s += t_ffn - t_attn
-        metrics.note(attn_host_s=attn_s, ffn_host_s=ffn_s)
         logits = T._unembed(cfg, self.params, h)[:, 0]
-        return logits, h[:, 0]
+        return (logits, h[:, 0], self._routed_experts(routes, live),
+                {"attn_host_s": attn_s, "ffn_host_s": ffn_s})
+
+    def _routed_experts(self, routes, live):
+        """The distinct experts the active rows routed to in each MoE
+        layer, (layers,) int64 on the device, from the layers' top-k ids
+        (B, k); None without routes (a dense model, expert parallelism)."""
+        if not routes:
+            return None
+        e = self.cfg.num_experts
+        ids = torch.where(live[None, :, None], torch.stack(routes), e)     # (layers, B, k)
+        hit = torch.zeros((ids.shape[0], e + 1), dtype=torch.bool, device=ids.device)
+        return hit.scatter_(1, ids.flatten(1), True)[:, :e].sum(1)
+
+    def _graph_decode(self, embeds, tables, positions, active):
+        """``decode`` by a CUDA graph: captured after one eager run of the
+        step at the first call, and again whenever what the capture baked
+        in changes (the shapes, the pools, ``models/moe.py:
+        drop_counter``); replayed at every other call."""
+        shapes = (tuple(embeds.shape), embeds.dtype, tables.shape)
+        baked = (self.k_pages, self.v_pages, self.k_scales, self.v_scales, moe.drop_counter)
+        g = self._graph
+        if g is not None and g.shapes == shapes \
+                and all(a is b for a, b in zip(g.baked, baked)):
+            g.load(embeds, tables, positions, active)
+            g.launch()
+            paged_attention.launches.add(g.launches)
+            metrics.note(graph_replays=1)
+            if g.routed is not None and metrics.keeping():
+                metrics.keep(routed_experts=g.routed.clone())
+            return g.logits, g.hidden
+        self._graph = None                  # the old graph's memory goes first
+        g = _DecodeGraph(self.device, shapes, baked)
+        g.load(embeds, tables, positions, active)
+        logits, hidden, routed, host_s = self._decode_body(g.embeds, *g.inputs)
+        metrics.note(graph_captures=1, **host_s)
+        if routed is not None:
+            metrics.keep(routed_experts=routed)
+        g.capture(self._decode_body)
+        self._graph = g
+        return logits, hidden
+
+
+#: one capture at a time in a process: ``torch.cuda.graph`` empties the
+#: allocator's cache as it starts, which must not meet another thread's
+#: capture (the PD graph runs two engine threads on one card)
+_capture_lock = threading.Lock()
+
+
+@functools.cache
+def _libcuda() -> ctypes.PyDLL:
+    """The CUDA driver, its calls made with the interpreter lock held."""
+    lib = ctypes.PyDLL("libcuda.so.1")
+    lib.cuGraphLaunch.argtypes = (ctypes.c_void_p, ctypes.c_void_p)
+    lib.cuGraphLaunch.restype = ctypes.c_int
+    return lib
+
+
+class _DecodeGraph:
+    """``PagedRunner._decode_body`` captured as one CUDA graph: the static
+    buffers its kernels read (the embeddings, and the tables, positions
+    and active mask packed in one int32 vector, filled from pinned host
+    memory) and write (``logits``, ``hidden``, ``routed``), the paged-
+    attention wrapper calls it holds (``launches``), the ``shapes`` it was
+    captured at and the tensors it ``baked`` in."""
+
+    def __init__(self, device, shapes, baked):
+        (b, _, d), dtype, (_, pp) = shapes
+        self.shapes, self.baked = shapes, baked
+        n = b * pp + 2 * b
+        self.host = torch.empty(n, dtype=torch.int32, pin_memory=True)
+        self.packed = packed = torch.empty(n, dtype=torch.int32, device=device)
+        self.inputs = (packed[:b * pp].view(b, pp), packed[b * pp:b * pp + b],
+                       packed[b * pp + b:])
+        self.embeds = torch.empty((b, 1, d), dtype=dtype, device=device)
+        self.copied = torch.cuda.Event()
+        self.graph = torch.cuda.CUDAGraph()
+        self.logits = self.hidden = self.routed = None
+        self.launches = 0
+
+    def load(self, embeds, tables, positions, active) -> None:
+        """Copy one step's inputs into the static buffers, on the current
+        stream, without waiting for the device."""
+        self.copied.synchronize()           # the last call's copy has read the host buffer
+        host = self.host.numpy()
+        n, b = tables.size, len(positions)
+        host[:n] = tables.reshape(-1)
+        host[n:n + b] = positions
+        host[n + b:] = active
+        self.packed.copy_(self.host, non_blocking=True)
+        self.copied.record()
+        self.embeds.copy_(embeds)
+
+    def launch(self) -> None:
+        """``graph.replay()``, with the interpreter lock held through the
+        launch (``cuGraphLaunch`` called through ``ctypes.PyDLL``).  A
+        ``torch.profiler`` stopping on another thread holds that lock while
+        CUPTI flushes, and a graph launched beside the flush deadlocks both
+        threads (H100, torch 2.11: two of five profiled runs of the MoE
+        cell hung there); holding the lock puts the one after the other.
+        The body draws no random numbers, so the launch needs none of
+        ``replay``'s generator bookkeeping."""
+        rc = _libcuda().cuGraphLaunch(self.graph.raw_cuda_graph_exec(),
+                                      torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"cuGraphLaunch failed: CUresult {rc}")
+
+    def capture(self, body) -> None:
+        with _capture_lock, paged_attention.launches.held() as held, \
+                torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.logits, self.hidden, self.routed, _ = body(self.embeds, *self.inputs)
+        self.launches = held[0]
 
 
 class StateRunner:

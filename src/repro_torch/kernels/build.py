@@ -14,6 +14,7 @@ the CUDA error (see ``check``).  Nothing falls back to another path.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -54,15 +55,33 @@ _libs: Dict[str, ctypes.CDLL] = {}       # guarded-by: _lock
 
 class LaunchCounter:
     """Kernel launches since the last ``reset``; the serving threads all
-    launch kernels, so the count is taken under a lock."""
+    launch kernels, so the count is taken under a lock.  Inside ``held``
+    a thread's calls are tallied apart instead (a CUDA graph's capture:
+    they launch at each replay, which its owner counts)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._n = 0                       # guarded-by: _lock
+        self._local = threading.local()   # .tally: this thread's held count
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
+        tally = getattr(self._local, "tally", None)
+        if tally is not None:
+            tally[0] += n
+            return
         with self._lock:
-            self._n += 1
+            self._n += n
+
+    @contextlib.contextmanager
+    def held(self):
+        """Tally this thread's ``add`` calls in the block apart from the
+        count; yields the tally, a one-item list."""
+        outer = getattr(self._local, "tally", None)
+        self._local.tally = tally = [0]
+        try:
+            yield tally
+        finally:
+            self._local.tally = outer
 
     def reset(self) -> None:
         with self._lock:

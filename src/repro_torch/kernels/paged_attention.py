@@ -8,7 +8,8 @@ partition), and a second kernel merges the partitions' partial softmax
 states (flash-decoding).  ``plan`` computes the split from shapes alone,
 so no call reads ``seq_lens`` on the host.  One wrapper call is two
 kernel launches (split, then combine), or one when a row fits in one
-partition; ``launches`` counts wrapper calls.
+partition; ``launches`` counts wrapper calls (a graph's captured
+calls at each replay: ``engine/runner.py: _DecodeGraph``).
 
 On a CUDA tensor this wrapper launches the kernels (or raises); on a CPU
 tensor it runs the plain version, ``ref.paged_attention``.

@@ -122,8 +122,10 @@ def experts(xf: torch.Tensor, topw: torch.Tensor, topi: torch.Tensor, wg: torch.
     return y, counts[:E_loc]
 
 
-def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor):
-    """x: (B, S, d) -> (y (B, S, d), aux_loss scalar f32)."""
+def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, routes: list | None = None):
+    """x: (B, S, d) -> (y (B, S, d), aux_loss scalar f32).  ``routes``: a
+    list that the dense dispatch appends its top-k expert ids (B*S, k) to
+    (expert parallelism appends nothing)."""
     from repro_torch.models import moe_ep
     if moe_ep.ep_applicable(cfg):
         return moe_ep.moe_forward_ep(cfg, p, x)
@@ -132,6 +134,8 @@ def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor):
     T = B * S
     xf = x.reshape(T, d)
     gates, topw, topi = route(p["router"], xf, k)
+    if routes is not None:
+        routes.append(topi)
     y, counts = experts(xf, topw, topi, p["wg"], p["wu"], p["wd"], 0, capacity(T, cfg))
 
     # ---- load-balance aux loss (Switch-style) --------------------------

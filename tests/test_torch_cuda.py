@@ -458,6 +458,186 @@ def test_bf16_kv_hop_round_trip_is_bit_exact_on_the_card(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the decode step as one CUDA graph (engine/runner.py: PagedRunner.decode)
+# ---------------------------------------------------------------------------
+
+GRAPH_B, GRAPH_PAGE, GRAPH_PP = 16, 16, 4
+
+
+def _graph_cfg(which):
+    from repro_torch.configs.pipelines import tiny_lm
+    from repro_torch.configs.qwen3_moe_30b_a3b import SMOKE_CONFIG
+    return {"tiny_lm": tiny_lm("t", vocab=256), "qwen3_moe_smoke": SMOKE_CONFIG}[which]
+
+
+def _decode_pair(cfg, gen):
+    """Two runners over one set of weights and equal random pools: one
+    decodes through its graph, the other runs the eager body."""
+    from repro_torch.engine.kv_cache import PagedKVConfig
+    from repro_torch.engine.runner import PagedRunner
+    from repro_torch.models import transformer as T
+    params = T.init_params(cfg, gen)
+    if cfg.is_moe:
+        # a zero router ties every gate: every row picks the same experts,
+        # and the first layer drops pairs at every step
+        params["blocks"]["moe"]["router"][0].zero_()
+    kv = PagedKVConfig(num_pages=GRAPH_B * GRAPH_PP + 8, page_size=GRAPH_PAGE,
+                       max_pages_per_seq=GRAPH_PP)
+    graph, eager = PagedRunner(cfg, params, kv), PagedRunner(cfg, params, kv)
+    for name in ("k_pages", "v_pages"):
+        pool = getattr(graph, name)
+        pool.copy_(torch.randn(pool.shape, generator=gen, device="cuda").to(pool.dtype))
+        getattr(eager, name).copy_(pool)
+    return graph, eager
+
+
+def _decode_steps(cfg, gen, n=8, seed=0):
+    """n steps of (embeds, tables, positions, active): rows join and leave
+    between steps, slot 0 inactive in two steps of three, and inactive
+    slots carry stale tables (other slots' pages) and positions."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    b, pp = GRAPH_B, GRAPH_PP
+    own = np.arange(b)[:, None] * pp + 1 + np.arange(pp)[None]
+    pos = rng.integers(0, GRAPH_PAGE, size=b)
+    steps = []
+    for step in range(n):
+        active = rng.random(b) < 0.6
+        active[0] = step % 3 == 2
+        active[b - 1] |= not active.any()
+        tables = np.where(active[:, None], own, rng.integers(0, b * pp, size=(b, pp)))
+        positions = np.where(active, pos, rng.integers(0, pp * GRAPH_PAGE, size=b))
+        embeds = torch.randn((b, 1, cfg.d_model), generator=gen, device="cuda")
+        steps.append((embeds.to(getattr(torch, cfg.dtype)), tables.astype(np.int32),
+                      positions.astype(np.int32), active))
+        pos = pos + active
+    return steps
+
+
+def _eager_step(runner, embeds, tables, positions, active):
+    """The eager body's (logits, hidden, routed experts or None)."""
+    dev = runner.device
+    logits, hidden, routed, _ = runner._decode_body(
+        embeds, torch.as_tensor(tables, device=dev), torch.as_tensor(positions, device=dev),
+        torch.as_tensor(active, device=dev))
+    return logits, hidden, routed
+
+
+def _same_step(graph, eager, step):
+    """One step through the graph, inside an engine step's ``model.decode``
+    phase, and through the eager body: bit-equal logits, hidden states
+    and pools, the same routed experts kept on the span, and the same
+    pairs dropped."""
+    from repro_torch.core import metrics
+    from repro_torch.models import moe
+    counter = moe.drop_counter
+    n0 = int(counter) if counter is not None else 0
+    trace = metrics.StepTrace("graph", metrics.StepTotals(), first="model.decode")
+    trace.worked = True
+    got = [t.clone() for t in graph.decode(*step)]
+    trace.finish()
+    got.append(metrics.spans[-1].kept.get("routed_experts"))
+    n1 = int(counter) if counter is not None else 0
+    want = _eager_step(eager, *step)
+    torch.cuda.synchronize()
+    assert (got[2] is None) == (want[2] is None) == (not graph.cfg.is_moe)
+    for g, w in zip(got, want):
+        assert g is None or torch.equal(g, w)
+    assert torch.equal(graph.k_pages, eager.k_pages)
+    assert torch.equal(graph.v_pages, eager.v_pages)
+    return n1 - n0, (int(counter) if counter is not None else 0) - n1
+
+
+@pytest.mark.parametrize("which", ["tiny_lm", "qwen3_moe_smoke"])
+def test_decode_graph_replays_the_eager_step_bit_for_bit(cuda, which, monkeypatch):
+    """Eight steps: the first runs eagerly and captures, the other seven
+    replay; each adds num_layers wrapper calls to ``launches`` (the
+    capture holds num_layers), and the drop counter counts in the
+    replays as in the eager body."""
+    from repro_torch.models import moe
+    cfg = _graph_cfg(which)
+    graph, eager = _decode_pair(cfg, cuda)
+    monkeypatch.setattr(moe, "drop_counter", torch.zeros((), dtype=torch.long, device="cuda"))
+    captured = None
+    for i, step in enumerate(_decode_steps(cfg, cuda)):
+        n = pa.launches.value
+        dropped, want = _same_step(graph, eager, step)
+        assert pa.launches.value == n + 2 * cfg.num_layers     # this step's, then the eager's
+        assert dropped == want and (dropped > 0) == cfg.is_moe
+        if i == 0:
+            captured = graph._graph
+        assert graph._graph is captured
+    assert captured.launches == cfg.num_layers and eager._graph is None
+
+
+def test_decode_graph_captures_again_for_new_pools_or_counter(cuda, monkeypatch):
+    from repro_torch.models import moe
+    cfg = _graph_cfg("qwen3_moe_smoke")
+    graph, eager = _decode_pair(cfg, cuda)
+    steps = _decode_steps(cfg, cuda, seed=1)
+    monkeypatch.setattr(moe, "drop_counter", None)
+    _same_step(graph, eager, steps[0])
+    first = graph._graph
+    _same_step(graph, eager, steps[1])
+    assert graph._graph is first
+    monkeypatch.setattr(moe, "drop_counter", torch.zeros((), dtype=torch.long, device="cuda"))
+    assert _same_step(graph, eager, steps[2])[0] > 0
+    second = graph._graph
+    assert second is not first
+    dropped, want = _same_step(graph, eager, steps[3])
+    assert graph._graph is second and dropped == want > 0
+    old = graph.k_pages, graph.v_pages
+    kept = [p.clone() for p in old]
+    for r in (graph, eager):
+        r.k_pages, r.v_pages = r.k_pages.clone(), r.v_pages.clone()
+    _same_step(graph, eager, steps[4])
+    third = graph._graph
+    assert third is not second
+    _same_step(graph, eager, steps[5])
+    assert graph._graph is third
+    for p, k in zip(old, kept):                # the replaced pools are written no more
+        assert torch.equal(p, k)
+
+
+def test_two_runners_capture_and_replay_from_two_threads(cuda):
+    """The PD layout: two engine threads on one card, each on its own
+    stream, capturing and replaying at once."""
+    import threading
+
+    from repro_torch.device import engine_stream, on_stream
+    cfg = _graph_cfg("tiny_lm").replace(dtype="bfloat16")
+    pairs = [_decode_pair(cfg, cuda) for _ in range(2)]
+    steps = [_decode_steps(cfg, cuda, seed=s) for s in (2, 3)]
+    results, errors = [[], []], []
+
+    def serve(i):
+        try:
+            runner = pairs[i][0]
+            stream = engine_stream(runner.device)
+            with on_stream(stream):
+                for step in steps[i]:
+                    results[i].append([t.clone() for t in runner.decode(*step)])
+            stream.synchronize()
+        except Exception as exc:      # noqa: BLE001 - raised below, on the test's thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=serve, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    for (graph, eager), got, run in zip(pairs, results, steps):
+        assert len(got) == len(run) and graph._graph is not None
+        for g, step in zip(got, run):
+            for a, b in zip(g, _eager_step(eager, *step)[:2]):
+                assert torch.equal(a, b)
+        torch.cuda.synchronize()
+        assert torch.equal(graph.k_pages, eager.k_pages)
+        assert torch.equal(graph.v_pages, eager.v_pages)
+
+
+# ---------------------------------------------------------------------------
 # the flash backward (training)
 # ---------------------------------------------------------------------------
 
