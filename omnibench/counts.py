@@ -6,10 +6,12 @@ change to the program cannot move them: one NVIDIA H100 SXM at its 700 W
 limit, 989 TFLOP/s dense bf16 on the tensor cores and 3.35 TB/s of HBM.
 A share of a peak is stated with the card's power limit beside it.
 
-``m`` is the ``model`` section of a configuration file (d_model,
-num_layers, num_heads, num_kv_heads, head_dim, d_ff, vocab_size and,
-for a MoE, num_experts and experts_per_token).  Counts are of what the
-inputs need, not of what the program happens to compute: padding rows,
+The model counts here are the ``transformer`` family's; another family
+counts its own layers (``families/<family>.py``).  ``m`` is the
+``model`` section of a configuration file (d_model, num_layers,
+num_heads, num_kv_heads, head_dim, d_ff, vocab_size and, for a MoE,
+num_experts and experts_per_token).  Counts are of what the inputs
+need, not of what the program happens to compute: padding rows,
 inactive batch rows and experts no token was routed to count nothing.
 """
 from __future__ import annotations

@@ -4,7 +4,8 @@
 
 1. reads the cell from ``BENCHMARK.json`` and the files it names, and
    stops (exit 1, no result) without as many cards as the cell asks for;
-2. draws the weights on the card from ``--seed`` (``weights.py``), builds
+2. draws the weights on the card from ``--seed`` in the layout of the
+   configuration's family (``families/<family>.py``), builds
    the cell's graph from the port's parts (``graphs/<graph>.py``) and
    its threaded ``Orchestrator`` through ``ServeConfig``;
 3. warms up with two requests of its own through the same entry (the
@@ -20,7 +21,8 @@
 5. after the window: an open loop's requests due in it are followed to
    their end (arrivals go on meanwhile), the card's peak memory is read,
    the program is stopped and freed, and the plain reference judges a
-   sample of the served requests (``judge.py``);
+   sample of the served requests (``judge.py``, through the family's
+   plain reference);
 6. prints the metrics of ``--trace 0`` (end to end) or ``--trace 1``
    (per layer) as the last line of standard output.
 
@@ -102,9 +104,8 @@ def build(cell: spec.Cell, seed: int, device, model: dict, serve: dict) -> Syste
     from repro_torch.core.config import ServeConfig
     from repro_torch.core.orchestrator import Orchestrator
 
-    from omnibench import weights
     cfg = ModelConfig(**model)
-    params = weights.program_params(model, seed, device)
+    params = spec.family(cell.family).program_params(model, seed, device)
     graph_mod = spec.load_module("graphs", cell.config["graph"])
     graph, engines = graph_mod.build(cfg, params, serve, seed)
     orch = Orchestrator(graph, engines, config=ServeConfig(backend="threaded"))
@@ -380,8 +381,7 @@ def serve_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
         moe_counter = torch.zeros((), dtype=torch.long, device=device)
         moe_module.drop_counter = moe_counter
     if trace:
-        rec.watch_layers(sys_.orch, sys_.engines,
-                         moe_module if model.get("num_experts", 0) else None)
+        rec.watch_layers(sys_.orch, sys_.engines)
     sender = Sender(sys_, rec)
     traffic = Traffic(traffic_spec or cell.traffic, model["vocab_size"], seed, seconds)
     slot = _ProfileSlot(probes.Profiler(spec.ROOT / "build" / "omnibench") if trace else None,
@@ -545,6 +545,9 @@ def report(measured: Measured) -> None:
                          f"p90 {stats.pct(vals, 90)!r}")
         log("open loop: " + "; ".join(parts))
     for name, kv in measured.kv_held.items():
+        if kv is None:
+            log(f"kv held by {name}: no page pool (its runner keeps no paged KV)")
+            continue
         log(f"kv held by {name}: peak {kv['peak_pages']} of {kv['pages']} pages, "
             f"{kv['peak_bytes']} of {kv['reserved_bytes']} bytes reserved")
     if measured.moe_drops is not None:

@@ -2,11 +2,13 @@
 
 Once the window has closed and the program's state is freed, a sample of
 the requests the run finished, drawn from the seed and holding the one
-with the most served tokens, goes through the reference
-(``reference/model.py``): each prompt with its served tokens, once, in
-f32.  At every served position the reference's best logit is compared
-with its logit of the token the program served; the widest gap over the
-sample is held to the cell's limit (``limits/<workload>.json``).  The
+with the most served tokens, goes through the plain reference of the
+configuration's family (``families/<family>.py: logits``; the default
+``transformer``'s is ``reference/model.py``): each prompt with its
+served tokens, once, in f32.  At every served position the reference's
+best logit is compared with its logit of the token the program served;
+the widest gap over the sample is held to the cell's limit
+(``limits/<workload>.json``).  The
 program decodes greedily, so a sound run serves, at every position, a
 token within its own rounding of the reference's best.
 
@@ -25,7 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from omnibench.reference import model as ref
+from omnibench import spec
 
 #: the sample holds the longest request and others until this many served tokens
 SAMPLE_TOKENS = 600
@@ -58,10 +60,12 @@ def sample(records: list, seed: int) -> list:
     return picked
 
 
-def gaps(model: dict, seed: int, records: list, device, control: bool = False) -> dict:
+def gaps(family: str, model: dict, seed: int, records: list, device,
+         control: bool = False) -> dict:
     """Per sampled request, the gap at each served position of the served
     token (``program``) and, with ``control``, of the fp8 forward's first
-    choice, both in the f32 reference's logits."""
+    choice, both in the logits of ``family``'s f32 reference."""
+    ref = spec.family(family)
     seqs, rows, served = [], [], []
     for r in records:
         toks = r.served()
@@ -98,7 +102,8 @@ def judge(measured, seed: int, device) -> Verdict:
     counts, each against its limit."""
     limits = measured.cell.limits
     picked = sample(measured.records, seed)
-    per_req = gaps(measured.model, seed, picked, device)["program"] if picked else []
+    per_req = (gaps(measured.cell.family, measured.model, seed, picked, device)["program"]
+               if picked else [])
     stats = statistics(per_req)
     compared = {k: {"value": stats[k], "limit": limits[k]} for k in stats if k in limits}
     finished = [r for r in measured.counted if r.done and not r.failed]

@@ -1,23 +1,22 @@
-"""The decode steps' share of the card's peak, reckoned as
-``mfu.decode_step`` reckons it, with the experts each step routed to
-taken from the program instead of from the benchmark's wrapper on
-``models/moe.py: route``: the ``routed_experts`` that
-``PagedRunner.decode`` keeps on the step's ``model.decode`` span (the
-distinct experts the active rows routed to in each MoE layer, counted on
-the device, by a replayed CUDA graph as by an eager step).  A replay
-never calls ``route``, so the wrapper sees no expert of it.  Each of the
-benchmark's decode spans takes the program span of its engine that it
-lies in.  Nothing for a model without experts, or for a program that
-keeps no such count."""
+"""The decode steps' share of the card's peak: the least time their inputs
+need (the larger of FLOPs at 989 TFLOP/s and bytes at 3.35 TB/s, by the
+cell's family's counts: weights read once, for a MoE only the experts the
+step routed to, and each active row's KV context) over the steps' time,
+summed over the window.  The experts each step routed to are the
+program's: the ``routed_experts`` that ``PagedRunner.decode`` keeps on
+the step's ``model.decode`` span (the distinct experts the active rows
+routed to in each MoE layer, counted on the device, by a replayed CUDA
+graph as by an eager step).  Each of the benchmark's decode spans takes
+the program span of its engine that it lies in.  Nothing for a model
+without experts, or for a program that keeps no such count."""
 import bisect
 
-from omnibench import counts, readers
+from omnibench import readers
 from omnibench.metrics import _program
 
 
 def read(measured):
-    m = measured.model
-    if not m.get("num_experts", 0):
+    if not measured.model.get("num_experts", 0):
         return None
     kept: dict = {}
     for s in _program.recorded():
@@ -33,6 +32,6 @@ def read(measured):
         if i < 0 or kept[step.engine][i].t1 < step.t1:
             continue
         routed = kept[step.engine][i].kept["routed_experts"].tolist()
-        bound += counts.bound_s(*counts.decode_step(m, step.meta["contexts"], routed))
+        bound += readers.decode_bound_s(measured, step.meta["contexts"], routed)
         secs += step.seconds
     return 100.0 * bound / secs if secs > 0 else None

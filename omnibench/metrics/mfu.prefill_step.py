@@ -1,6 +1,7 @@
 """Share of the card's bf16 peak (989 TFLOP/s) that the prefill chunks in
-the window reach: the products and attention their tokens need
-(``counts.prefill_chunk_flops``) over the chunks' time on their stream."""
+the window reach: the products and attention their tokens need (the
+cell's family's ``prefill_chunk_flops``) over the chunks' time on their
+stream."""
 from omnibench import counts, readers
 
 
@@ -9,6 +10,7 @@ def read(measured):
     secs = sum(s.seconds for s in chunks)
     if not chunks or secs <= 0:
         return None
-    flops = sum(counts.prefill_chunk_flops(measured.model, s.meta["start"], s.meta["valid"])
+    fam = readers.family(measured)
+    flops = sum(fam.prefill_chunk_flops(measured.model, s.meta["start"], s.meta["valid"])
                 for s in chunks)
     return 100.0 * flops / (secs * counts.PEAK_FLOPS_BF16)

@@ -99,7 +99,7 @@ def calibrate(args, t_start: float) -> None:
                                             model, serve)
         harness.free(sys_)
         picked = judge.sample(measured.records, seed)
-        g = judge.gaps(model, seed, picked, "cuda", control=True)
+        g = judge.gaps(cell.family, model, seed, picked, "cuda", control=True)
         finished = [r for r in measured.counted if r.done and not r.failed]
         row = {"seed": seed, "program": judge.statistics(g["program"]),
                "control": judge.statistics(g["control"]),

@@ -2,17 +2,18 @@
 program's layers, the program's counters, and a profiler slice.
 
 Spans wrap the program's objects from outside (instance attributes that
-shadow a method; the MoE router's module function), record host clock
-times and, on the card, a pair of CUDA events on the calling thread's
-current stream, which inside ``AREngine.step`` is the engine's own.  No
-span synchronises: the events are read once the run is over.
+shadow a method), record host clock times and, on the card, a pair of
+CUDA events on the calling thread's current stream, which inside
+``AREngine.step`` is the engine's own.  No span synchronises: the events
+are read once the run is over.  Only a runner with a page pool
+(``PagedRunner``) is wrapped; the readers of its spans read nothing in a
+run whose runners keep no paged KV (``StateRunner``).
 
 The token stamps, one per streamed token as the router hands it to the
 request (``Orchestrator._route``), are what the end-to-end metrics are
 taken from; they are recorded in every run, and so is the most KV each
-engine held (``KvPeak``).  The runner and connector spans, the experts
-the MoE router chose and the profiler are recorded only with
-``--trace 1``.
+engine held (``KvPeak``).  The runner and connector spans and the
+profiler are recorded only with ``--trace 1``.
 """
 from __future__ import annotations
 
@@ -20,7 +21,6 @@ import json
 from collections import deque
 import os
 import pathlib
-import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Optional
@@ -60,7 +60,6 @@ class Recorder:
         # router thread, taken from the left by the main thread
         self.stamps: deque = deque()
         self.spans: list = []
-        self._local = threading.local()
         self._undo: list = []
 
     # ---- installation ------------------------------------------------------
@@ -80,27 +79,17 @@ class Recorder:
 
         self._shadow(orch, "_route", route)
 
-    def watch_layers(self, orch, engines: dict, moe_module=None) -> None:
+    def watch_layers(self, orch, engines: dict) -> None:
         for name, eng in engines.items():
             runner = eng.runner
+            if not has_pool(runner):
+                continue
             for kind in ("prefill_chunk", "decode", "extract_kv", "inject_kv"):
                 self._shadow(runner, kind, self._timed(kind, name, getattr(runner, kind)))
         for kind, conn in orch.connectors.items():
             for op in ("send", "recv"):
                 self._shadow(conn, op, self._timed(op, kind, getattr(conn, op),
                                                    device=False))
-        if moe_module is not None:
-            orig = moe_module.route
-
-            def route(router, xf, k):
-                out = orig(router, xf, k)
-                sink = getattr(self._local, "routes", None)
-                if sink is not None:
-                    sink.append(out[2])
-                return out
-
-            moe_module.route = route
-            self._undo.append(lambda: setattr(moe_module, "route", orig))
 
     def _timed(self, kind: str, engine: str, fn, device: bool = True):
         use_events = device and self.cuda
@@ -110,17 +99,12 @@ class Recorder:
             if use_events:
                 ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
                 ev[0].record()
-            if kind == "decode":
-                self._local.routes = []
             try:
                 return fn(*args, **kwargs)
             finally:
                 if use_events:
                     ev[1].record()
                     span.events = ev
-                if kind == "decode":
-                    span.meta["routes"] = self._local.routes
-                    self._local.routes = None
                 span.t1 = time.perf_counter()
                 self.spans.append(span)
 
@@ -146,22 +130,32 @@ def _meta(kind: str, args: tuple) -> dict:
     if kind == "decode":
         positions = np.asarray(args[2], np.int64)
         active = np.asarray(args[3], bool)
-        return {"rows": np.nonzero(active)[0], "contexts": (positions[active] + 1).tolist()}
+        return {"contexts": (positions[active] + 1).tolist()}
     return {}
+
+
+def has_pool(runner) -> bool:
+    """Whether the runner keeps its KV in a page pool."""
+    return getattr(runner, "k_pages", None) is not None
 
 
 class KvPeak:
     """The most pages of its KV pool each engine held at once, from the
     pool's free list (read without a lock, as the router's own probe
-    does), beside the pages reserved."""
+    does), beside the pages reserved.  An engine whose runner has no
+    page pool is named with nothing to read."""
 
     def __init__(self, engines: dict):
         self.allocs = {}
         self.page_bytes = {}
         self.peak = {}
+        self.pool_less = []
         for name, eng in engines.items():
-            alloc = eng.scheduler.allocator
             runner = eng.runner
+            if not has_pool(runner):
+                self.pool_less.append(name)
+                continue
+            alloc = eng.scheduler.allocator
             self.allocs[name] = alloc
             self.page_bytes[name] = (runner.k_pages.nbytes + runner.v_pages.nbytes) // alloc.num_pages
             self.peak[name] = 0
@@ -173,11 +167,14 @@ class KvPeak:
                 self.peak[name] = held
 
     def summary(self) -> dict:
-        """Per engine: pages and bytes held at the peak, and reserved."""
-        return {name: {"peak_pages": self.peak[name], "pages": a.num_pages,
-                       "peak_bytes": self.peak[name] * self.page_bytes[name],
-                       "reserved_bytes": a.num_pages * self.page_bytes[name]}
-                for name, a in self.allocs.items()}
+        """Per engine: pages and bytes held at the peak, and reserved; None
+        for an engine with no page pool."""
+        out: dict = {name: None for name in self.pool_less}
+        out.update({name: {"peak_pages": self.peak[name], "pages": a.num_pages,
+                           "peak_bytes": self.peak[name] * self.page_bytes[name],
+                           "reserved_bytes": a.num_pages * self.page_bytes[name]}
+                    for name, a in self.allocs.items()})
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -2,11 +2,10 @@
 from __future__ import annotations
 
 import math
+from types import ModuleType
 from typing import Optional
 
-import torch
-
-from omnibench import counts, stats
+from omnibench import counts, spec, stats
 
 
 def spans(measured, kind: str, engine: Optional[str] = None) -> list:
@@ -39,22 +38,17 @@ def per_request_tpot_s(measured, r) -> float:
     return (pts[-1][0] - pts[0][0]) / (n - 1)
 
 
-def routed_experts(m: dict, span) -> list:
-    """Distinct experts the active rows of a decode step routed to, per layer."""
-    routes = span.meta.get("routes") or []
-    if not routes:
-        return []
-    ids = torch.stack(routes)[:, torch.as_tensor(span.meta["rows"], dtype=torch.long,
-                                                 device=routes[0].device)]
-    hit = torch.zeros(ids.shape[0], m["num_experts"], dtype=torch.bool, device=ids.device)
-    hit.scatter_(1, ids.reshape(ids.shape[0], -1), True)
-    return hit.sum(1).tolist()
+def family(measured) -> ModuleType:
+    """The cell's architecture family (``families/<family>.py``)."""
+    return spec.family(measured.cell.family)
 
 
-def decode_bound_s(m: dict, span) -> float:
-    contexts = span.meta["contexts"]
-    routed = routed_experts(m, span) if m.get("num_experts", 0) else None
-    return counts.bound_s(*counts.decode_step(m, contexts, routed))
+def decode_bound_s(measured, contexts, routed_experts=None) -> float:
+    """The least time of a decode step whose active rows hold ``contexts``
+    tokens, by the family's counts (``routed_experts``: distinct experts
+    per MoE layer)."""
+    return counts.bound_s(*family(measured).decode_step(measured.model, contexts,
+                                                        routed_experts))
 
 
 def pct_finite(values, p: float) -> Optional[float]:

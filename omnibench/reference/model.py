@@ -1,5 +1,7 @@
-"""The plain reference: a float32 forward of the dense and MoE
+"""The plain reference of the ``transformer`` family
+(``families/transformer.py``): a float32 forward of the dense and MoE
 transformers the configurations name, in plain PyTorch, with TF32 off.
+Other families' references reuse its products, norm and TF32 switch.
 
 It imports nothing of the program.  It draws each layer's weights again
 from the run's seed (``omnibench.weights``), one layer at a time, and

@@ -4,6 +4,9 @@ Everything that belongs to one configuration, traffic mix, metric or cell
 sits in a file of its own, found by its name:
 
   configs/<config>.json      sizes and serving settings (``file`` in BENCHMARK.json)
+  families/<family>.py       the weight layout, plain reference and work counts of
+                             the architecture family a configuration names
+                             (``transformer`` where it names none)
   graphs/<graph>.py          builds the stage graph a configuration names
   traffic/<traffic>.json     parameters of the one traffic generator
   metrics/<metric>.py        the reader of one metric: ``read(ctx) -> float | None``
@@ -14,6 +17,7 @@ and entries; no file here needs an edit.
 """
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import pathlib
@@ -28,6 +32,7 @@ NAME_RE = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 UNIT_RE = re.compile(r"[A-Za-z0-9_/%.-]{1,16}")
 SOURCES_END_TO_END = ("host_clock", "device_trace")
 SOURCES = ("device_trace", "program_span", "program_counter", "host_clock")
+DEFAULT_FAMILY = "transformer"
 
 
 class SpecError(ValueError):
@@ -107,6 +112,7 @@ class Cell:
     chips: int
     config_name: str
     config: dict            # configs/<config>.json
+    family: str             # families/<family>.py
     traffic_name: str
     traffic: dict           # traffic/<traffic>.json
     end_to_end: tuple       # metric entries this cell reports with --trace 0
@@ -141,8 +147,14 @@ def cell(bench: dict, name: str, root: pathlib.Path = ROOT) -> Cell:
     limits_path = HERE / "limits" / f"{name}.json"
     if not limits_path.exists():
         raise SpecError(f"{name}: no limits file {limits_path.relative_to(root)}")
+    config = read_json(root / cfg_entry["file"])
+    fam = config.get("family", DEFAULT_FAMILY)
+    if not (isinstance(fam, str) and NAME_RE.fullmatch(fam)):
+        raise SpecError(f"{name}: family {fam!r} is not a name")
+    if not (HERE / "families" / f"{fam}.py").exists():
+        raise SpecError(f"{name}: no family file omnibench/families/{fam}.py")
     return Cell(name=name, chips=w["chips"], config_name=w["config"],
-                config=read_json(root / cfg_entry["file"]),
+                config=config, family=fam,
                 traffic_name=w["traffic"],
                 traffic=read_json(HERE / "traffic" / f"{w['traffic']}.json"),
                 end_to_end=e2e, per_layer=per_layer,
@@ -158,3 +170,10 @@ def load_module(kind: str, name: str) -> ModuleType:
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+@functools.lru_cache(maxsize=None)
+def family(name: str) -> ModuleType:
+    """``families/<name>.py``, loaded once: ``program_params``, ``logits``,
+    ``decode_step`` and ``prefill_chunk_flops`` of that architecture."""
+    return load_module("families", name)

@@ -29,18 +29,27 @@ PD_PER_LAYER = [
      "layer": "connector (connector/shm.py) with PagedRunner.extract_kv and inject_kv"},
     {"name": "mfu.prefill_step", "unit": "%", "better": "higher", "source": "program_span",
      "layer": "model step, prefill (engine/runner.py, models/*)"}]
+#: a tiny configuration of the ``mamba1`` family (its file beside this
+#: one), served by the port's ``StateRunner``, which keeps no page pool;
+#: the tests drive it as the PD cell is driven, at its own sizes
+MAMBA_CONFIG = {"name": "mamba1_tiny", "source": "https://arxiv.org/abs/2312.00752",
+                "file": "omnibench/tests/mamba1_tiny.json", "reduced": [],
+                "why": "attention-free Mamba1 blocks, the recurrent state per slot"}
+MAMBA_CELL = {"name": "mamba1_tiny.backlog", "config": "mamba1_tiny",
+              "traffic": "alpaca_backlog16", "chips": 1,
+              "why": "closed loop at a CPU test's size: the state runner's prefill and decode"}
 _load = spec.load_benchmark
 
 
 def bench() -> dict:
-    """BENCHMARK.json with the PD configuration and cell added."""
+    """BENCHMARK.json with the PD and the mamba1 configurations and cells added."""
     b = _load()
     if PD_CELL["name"] not in {w["name"] for w in b["workloads"]}:
-        b["configs"].append(dict(PD_CONFIG))
-        b["workloads"].append(dict(PD_CELL))
+        b["configs"] += [dict(PD_CONFIG), dict(MAMBA_CONFIG)]
+        b["workloads"] += [dict(PD_CELL), dict(MAMBA_CELL)]
         for m in b["end_to_end"] + b["per_layer"]:
             if m["name"] == "output_tok_per_s" or m.get("moves") == "output_tok_per_s":
-                m["workloads"].append(PD_CELL["name"])
+                m["workloads"] += [PD_CELL["name"], MAMBA_CELL["name"]]
         b["per_layer"] += [dict(m, moves="output_tok_per_s", workloads=[PD_CELL["name"]])
                            for m in PD_PER_LAYER]
     return b
@@ -57,7 +66,8 @@ def run(workload: str, seed: int = 2147483649, seconds: float = 2.0, trace: int 
     other.  Other tests of the process may have loaded the JAX package,
     so the run's own look at the loaded modules is off unless asked for."""
     moe = workload.startswith("moe")
-    model = dict(MODEL, **(MOE if moe else {}))
+    # the mamba1 configuration is already at a CPU test's size
+    model = {} if workload == MAMBA_CELL["name"] else dict(MODEL, **(MOE if moe else {}))
     loop = loop or spec.cell(bench(), workload).traffic["loop"]
     traffic = OPEN if loop == "open" else CLOSED
     args = harness.parse(["--workload", workload, "--seed", str(seed),

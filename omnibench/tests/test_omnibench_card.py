@@ -35,7 +35,8 @@ def test_the_control_fails_where_the_program_passes(card, workload):
     sys_, measured = harness.serve_cell(cell, seed, CONTROL_SECONDS, False, card,
                                         time.perf_counter(), model, serve)
     harness.free(sys_)
-    g = judge.gaps(model, seed, judge.sample(measured.records, seed), card, control=True)
+    g = judge.gaps(cell.family, model, seed, judge.sample(measured.records, seed), card,
+                   control=True)
     program, control = judge.statistics(g["program"]), judge.statistics(g["control"])
     named = [k for k in program if k in cell.limits]
     assert named

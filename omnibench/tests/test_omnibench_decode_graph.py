@@ -1,18 +1,23 @@
 """The readers of the decode graph's metrics on planted spans:
 ``model.decode_graph_share`` with every decode replayed, some, none, and
 a program that notes no graph; ``mfu.decode_step_program`` with the
-experts the program kept on each decode, without them, and against the
-benchmark's own ``mfu.decode_step`` in an eager run on the CPU."""
+experts the program kept on each decode, without them, and in an eager
+run on the CPU against the experts a tap on the router saw."""
+import threading
+import time
 from collections import deque
 from types import SimpleNamespace
 from unittest import mock
 
+import numpy as np
 import pytest
 import torch
 
 import cpu_cell
 from omnibench import counts, harness, probes, spec
 from repro_torch.core import metrics as program_metrics
+from repro_torch.engine.runner import PagedRunner
+from repro_torch.models import moe
 
 STAGE = "thinker"
 
@@ -54,6 +59,7 @@ def test_a_program_that_notes_no_graph_reads_nothing(monkeypatch):
 
 MOE_MODEL = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
                  d_ff=32, vocab_size=512, num_experts=4, experts_per_token=2)
+CELL = SimpleNamespace(family="transformer")
 
 
 def _bench_decode(t0, contexts, engine=STAGE, seconds=0.05):
@@ -70,7 +76,7 @@ def _mfu(program_spans, bench_spans, monkeypatch, model=MOE_MODEL):
     monkeypatch.setattr(program_metrics, "spans", deque(program_spans))
     measured = SimpleNamespace(records=[SimpleNamespace(stage=STAGE)], profile=None,
                                in_window=lambda t: 10.0 <= t < 20.0, model=model,
-                               spans=bench_spans)
+                               spans=bench_spans, cell=CELL)
     return spec.load_module("metrics", "mfu.decode_step_program").read(measured)
 
 
@@ -103,13 +109,37 @@ def test_no_kept_experts_or_no_experts_reads_nothing(monkeypatch):
     monkeypatch.delattr(program_metrics, "spans")
     measured = SimpleNamespace(records=[SimpleNamespace(stage=STAGE)], profile=None,
                                in_window=lambda t: 10.0 <= t < 20.0, model=MOE_MODEL,
-                               spans=bench)
+                               spans=bench, cell=CELL)
     assert spec.load_module("metrics", "mfu.decode_step_program").read(measured) is None
 
 
-def test_an_eager_cpu_run_reads_as_the_route_wrapper_does():
-    """On the CPU the decode runs eagerly, so the benchmark's wrapper on
-    ``route`` sees every step's experts: both shares must agree."""
+def test_an_eager_cpu_run_reads_the_experts_the_router_chose(monkeypatch):
+    """On the CPU every decode runs eagerly, so a tap on ``moe.route``
+    sees each step's experts: the share that the reader takes from the
+    program's count must equal the share worked out from the tap's."""
+    local = threading.local()
+    taps = []                                  # (call time, distinct experts per layer)
+    route, decode = moe.route, PagedRunner.decode
+
+    def tapped_route(router, xf, k):
+        out = route(router, xf, k)
+        if getattr(local, "ids", None) is not None:
+            local.ids.append(out[2])
+        return out
+
+    def tapped_decode(self, embeds, tables, positions, active):
+        t, local.ids = time.perf_counter(), []
+        try:
+            return decode(self, embeds, tables, positions, active)
+        finally:
+            rows = torch.as_tensor(np.nonzero(np.asarray(active, bool))[0])
+            ids = torch.stack(local.ids)[:, rows].reshape(len(local.ids), -1)
+            hit = torch.zeros(ids.shape[0], self.cfg.num_experts, dtype=torch.bool)
+            taps.append((t, hit.scatter_(1, ids, True).sum(1).tolist()))
+            local.ids = None
+
+    monkeypatch.setattr(moe, "route", tapped_route)
+    monkeypatch.setattr(PagedRunner, "decode", tapped_decode)
     seen = {}
     real = harness.report
 
@@ -120,6 +150,12 @@ def test_an_eager_cpu_run_reads_as_the_route_wrapper_does():
     with mock.patch.object(harness, "report", keep):
         res = cpu_cell.run("moe_qwen3.decode_closed", seed=3000000021, seconds=2.0, trace=1)
     assert res["correct"], res["compared"]
+    measured = seen["measured"]
+    bound = secs = 0.0
+    for step in [s for s in measured.spans if s.kind == "decode" and measured.in_window(s.t0)]:
+        routed = next(r for t, r in taps if step.t0 <= t <= step.t1)
+        bound += counts.bound_s(*counts.decode_step(measured.model, step.meta["contexts"], routed))
+        secs += step.seconds
     m = {k: v["value"] for k, v in res["metrics"].items()}
-    assert m["mfu.decode_step_program"] == pytest.approx(m["mfu.decode_step"], rel=1e-9)
+    assert m["mfu.decode_step_program"] == pytest.approx(100.0 * bound / secs, rel=1e-9)
     assert m["mfu.decode_step_program"] > 0

@@ -1,5 +1,5 @@
 """Nothing the harness loads is JAX or the JAX package, by whole top-level
-names, and the reference loads nothing of the program either."""
+names, and the references load nothing of the program either."""
 import json
 import pathlib
 import subprocess
@@ -24,6 +24,10 @@ from omnibench.reference import model
 m = dict(num_layers=1, d_model=32, num_heads=2, num_kv_heads=1, head_dim=16, d_ff=64,
          vocab_size=64, rope_theta=10000.0, rmsnorm_eps=1e-6, dtype="float32")
 model.logits(m, 3, [[1, 2, 3]], [[0, 1, 2]], "cpu")
+from omnibench import spec
+spec.family("mamba1").logits(dict(num_layers=1, d_model=32, vocab_size=64, rmsnorm_eps=1e-6,
+                                  ssm_state=4, ssm_expand=2, ssm_conv=4, dtype="float32"),
+                             3, [[1, 2, 3]], [[0, 1, 2]], "cpu")
 print(json.dumps(sorted(sys.modules)))
 """
 
@@ -47,7 +51,7 @@ def test_a_run_loads_no_jax_and_no_jax_package():
     assert not tops & {"jax", "jaxlib", "flax", "repro"}
 
 
-def test_the_reference_loads_nothing_of_the_program():
+def test_the_references_load_nothing_of_the_program():
     tops = _tops(json.loads(_modules(RUN_REFERENCE.format(root=str(ROOT)))))
     assert not tops & {"jax", "jaxlib", "flax", "repro", "repro_torch"}
 

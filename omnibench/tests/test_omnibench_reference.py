@@ -1,6 +1,6 @@
-"""The plain reference against the JAX package's forward, on the CPU, at
-the smoke sizes of both configurations (the JAX package is imported here
-only, never by the harness)."""
+"""The plain references against the JAX package's forward, on the CPU, at
+the smoke sizes of both configurations and of a Mamba1 model (the JAX
+package is imported here only, never by the harness)."""
 import dataclasses
 
 import jax
@@ -12,7 +12,7 @@ import torch
 from repro.configs.base import get_config
 from repro.models import transformer as JT
 
-from omnibench import weights
+from omnibench import spec, weights
 from omnibench.reference import model as ref
 
 
@@ -46,6 +46,31 @@ def test_reference_matches_the_jax_forward(arch):
     want = np.asarray(want)[0]
     got = ref.logits(m, seed, [tokens[0].tolist()], [list(range(40))], "cpu")[0].numpy()
     np.testing.assert_allclose(got, want, atol=2e-4, rtol=2e-4)
+
+
+def test_mamba1_reference_matches_the_jax_forward():
+    """Both sides in f32, the JAX products at "highest" precision: they
+    differ only in the order of sums (the JAX package's scan against one
+    position after another), which moves logits of magnitude ~4 by about
+    1e-5; 2e-4 holds that with room, where a missing conv bias, D skip or
+    gate moves them by tenths."""
+    cfg = get_config("falcon_mamba_7b", smoke=True).replace(dtype="float32")
+    m = {k: getattr(cfg, k) for k in ("num_layers", "d_model", "vocab_size", "rmsnorm_eps",
+                                      "ssm_state", "ssm_expand", "ssm_conv")}
+    m["dtype"] = "float32"
+    fam = spec.family("mamba1")
+    seed = 2**31 + 11
+    p = fam.program_params(m, seed, "cpu")
+
+    def conv(t):
+        return {k: conv(v) for k, v in t.items()} if isinstance(t, dict) else jnp.asarray(
+            t.numpy())
+
+    tokens = np.random.default_rng(0).integers(0, m["vocab_size"], size=(1, 40)).astype(np.int32)
+    with jax.default_matmul_precision("highest"):
+        want, _ = JT.forward_full(cfg, conv(p), jnp.asarray(tokens), remat=False)
+    got = fam.logits(m, seed, [tokens[0].tolist()], [list(range(40))], "cpu")[0].numpy()
+    np.testing.assert_allclose(got, np.asarray(want)[0], atol=2e-4, rtol=2e-4)
 
 
 def test_the_control_is_coarser_than_the_reference():

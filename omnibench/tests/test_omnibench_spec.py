@@ -56,6 +56,9 @@ def test_every_cell_resolves_with_its_metrics_and_limits(bench):
         for m in cell.end_to_end + cell.per_layer:
             assert callable(spec.load_module("metrics", m["name"]).read)
         spec.load_module("graphs", cell.config["graph"])
+        fam = spec.family(cell.family)
+        for fn in ("program_params", "logits", "decode_step", "prefill_chunk_flops"):
+            assert callable(getattr(fam, fn)), (cell.family, fn)
         assert {"logit_gap", "logit_gap_mean"} & set(cell.limits)
 
 
