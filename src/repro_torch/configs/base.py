@@ -71,6 +71,25 @@ class ModelConfig:
     # provenance (source paper / model card for the config numbers)
     source: str = ""
 
+    # Settings the JAX package's configuration has no field for (it lays out
+    # none of the models that need them): ``ExtendedModelConfig``'s fields,
+    # at the values that leave every other model as it is.  ``ModelConfig``
+    # given any of them builds an ``ExtendedModelConfig``, so a plain
+    # configuration's ``dataclasses.asdict`` stays the JAX package's.
+    attn_layer_period = 0
+    attn_layer_offset = 0
+    expert_layer_period = 0
+    expert_layer_offset = 0
+    router_experts = 0
+    expert_offset = 0
+    renormalize_topk = True
+    ssm_dt_norms = False
+
+    def __new__(cls, *args, **kw):
+        if cls is ModelConfig and _EXTENDED.intersection(kw):
+            cls = ExtendedModelConfig
+        return super().__new__(cls)
+
     # ---- derived ----
     @property
     def d_inner(self) -> int:
@@ -89,8 +108,34 @@ class ModelConfig:
         return self.arch_type == "ssm"
 
     @property
+    def interleaved(self) -> bool:
+        """Attention and Mamba1 mixers in one stack, by attn_layer_period."""
+        return self.attn_layer_period > 0
+
+    @property
+    def has_mamba(self) -> bool:
+        """Whether any layer keeps a recurrent state (Mamba1 or Mamba2)."""
+        return LAYER_MAMBA in self.layer_layout
+
+    @property
+    def router_width(self) -> int:
+        """The experts the router scores (all of them, held here or not)."""
+        return self.router_experts or self.num_experts
+
+    def is_moe_layer(self, i: int) -> bool:
+        """Whether layer i's feed-forward is the MoE."""
+        if not self.is_moe:
+            return False
+        p = self.expert_layer_period
+        return not p or i % p == self.expert_layer_offset
+
+    @property
     def layer_layout(self) -> str:
         """Per-layer kind string of length num_layers."""
+        if self.interleaved:
+            p, o = self.attn_layer_period, self.attn_layer_offset
+            return "".join(LAYER_ATTN if i % p == o else LAYER_MAMBA
+                           for i in range(self.num_layers))
         if self.arch_type == "ssm":
             return LAYER_MAMBA * self.num_layers
         if self.arch_type == "hybrid":
@@ -108,6 +153,14 @@ class ModelConfig:
         n = 0
         # embeddings (+ untied head)
         n += self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.interleaved:
+            # counted whole: each layer's two norm scales, a Mamba layer's
+            # conv bias, and the final norm's scale
+            for i, kind in enumerate(self.layer_layout):
+                n += (self._attn_params() if kind == LAYER_ATTN
+                      else self._mamba_params() + self.d_inner)
+                n += self._mlp_params() if self.is_moe_layer(i) else 3 * d * self.d_ff
+            return n + (2 * self.num_layers + 1) * d
         for kind in self.layer_layout:
             if kind == LAYER_ATTN:
                 n += self._attn_params() + self._mlp_params()
@@ -118,13 +171,15 @@ class ModelConfig:
         return n
 
     def active_param_count(self) -> int:
-        """Params active per token (MoE: only top-k experts)."""
+        """Params active per token (MoE: only top-k experts; of a share of
+        the experts, as if the token's top k were all held here)."""
         if not self.is_moe:
             return self.param_count()
         d = self.d_model
         per_expert = 3 * d * self.d_ff
         total = self.param_count()
-        inactive = (self.num_experts - self.experts_per_token) * per_expert * self.num_layers
+        moe_layers = sum(self.is_moe_layer(i) for i in range(self.num_layers))
+        inactive = (self.num_experts - self.experts_per_token) * per_expert * moe_layers
         return total - inactive
 
     def _attn_params(self) -> int:
@@ -135,25 +190,60 @@ class ModelConfig:
 
     def _mlp_params(self) -> int:
         if self.is_moe:
-            return self.num_experts * 3 * self.d_model * self.d_ff + self.d_model * self.num_experts
+            d = self.d_model
+            return self.num_experts * 3 * d * self.d_ff + d * self.router_width
         return 3 * self.d_model * self.d_ff
 
     def _mamba_params(self) -> int:
         d, di, s = self.d_model, self.d_inner, self.ssm_state
         if self.ssm_version == 1:
             dt_rank = max(1, d // 16)
-            return (d * 2 * di            # in_proj
-                    + di * self.ssm_conv  # conv1d
-                    + di * (dt_rank + 2 * s)  # x_proj
-                    + dt_rank * di + di   # dt_proj
-                    + di * s + di         # A_log, D
-                    + di * d)             # out_proj
+            n = (d * 2 * di               # in_proj
+                 + di * self.ssm_conv     # conv1d
+                 + di * (dt_rank + 2 * s)  # x_proj
+                 + dt_rank * di + di      # dt_proj
+                 + di * s + di            # A_log, D
+                 + di * d)                # out_proj
+            if self.ssm_dt_norms:         # the dt, B and C norms' scales
+                n += dt_rank + 2 * s
+            return n
         # mamba2: in_proj -> [z, x, B, C, dt]
         nh = self.ssm_heads or max(1, di // 64)
         d_in_proj = 2 * di + 2 * s + nh
         return (d * d_in_proj + (di + 2 * s) * self.ssm_conv
                 + nh * 3                  # A_log, D, dt_bias per head
                 + di * d)
+
+
+@dataclass(frozen=True)
+class ExtendedModelConfig(ModelConfig):
+    """A ``ModelConfig`` with settings the JAX package's has no field for."""
+
+    # Layers of interleaved kinds (Jamba), served by engine/runner.py's
+    # PagedRunner: with a period, layer i's mixer is attention where
+    # i % attn_layer_period == attn_layer_offset and a Mamba1 layer
+    # elsewhere, and (a MoE) its feed-forward is the MoE where
+    # i % expert_layer_period == expert_layer_offset and a dense MLP
+    # elsewhere.  0: every layer's mixer is attention and every
+    # feed-forward as arch_type says.
+    attn_layer_period: int = 0
+    attn_layer_offset: int = 0
+    expert_layer_period: int = 0
+    expert_layer_offset: int = 0
+    # Expert parallelism's share on this card: the router scores
+    # router_experts experts (0: num_experts), of which this card holds
+    # num_experts, those from expert_offset on, and computes their part.
+    router_experts: int = 0
+    expert_offset: int = 0
+    # top-k weights renormalised to sum to one (Mixtral, Qwen3); Jamba
+    # keeps them as the softmax over all experts gives them
+    renormalize_topk: bool = True
+    # Mamba1 (Jamba): RMSNorms on dt (before dt_proj), B and C after x_proj
+    ssm_dt_norms: bool = False
+
+
+_EXTENDED = frozenset(f.name for f in dataclasses.fields(ExtendedModelConfig)) - frozenset(
+    f.name for f in dataclasses.fields(ModelConfig))
 
 
 @dataclass(frozen=True)

@@ -14,7 +14,10 @@ device->host read the engine and its runner make goes through
 ``to_cpu``, which times and counts it on the step (``wait_s``,
 ``syncs``) or, outside a step, on what ``reads_into`` names.  The
 decode layer loop's host time (``attn_host_s``, ``ffn_host_s``) reaches
-the ``model.decode`` phase through ``note``; device tensors a phase
+the ``model.decode`` phase through ``note``, and so does each prefill
+chunk of a model with Mamba layers to ``engine.prefill``: ``mamba_resets``
+(it began a prompt from a zero state) or ``mamba_carries`` (it went on
+from the state the chunk before left); device tensors a phase
 made, read only once the work is over, reach its span through ``keep``
 (``routed_experts``, the distinct experts a decode step routed to).
 

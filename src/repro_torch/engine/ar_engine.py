@@ -88,25 +88,28 @@ class AREngine:
         # rollback is free.
         self.spec_ngram = spec_ngram
         self.spec_stats = {"proposed": 0, "accepted": 0, "steps": 0}
-        # prefix caching needs paged KV: SSM state is not content-sharable
-        self.enable_prefix_cache = (enable_prefix_cache
-                                    and cfg.arch_type not in ("ssm",
-                                                              "hybrid"))
+        self._paged = cfg.arch_type not in ("ssm", "hybrid")
+        if (spec_ngram or emit_kv) and self._paged and cfg.has_mamba:
+            # a page shipped or rewound carries no Mamba state
+            raise ValueError(f"{cfg.name} has Mamba layers, whose state speculative "
+                             f"verification and PD KV hops cannot carry")
+        # prefix caching shares pages, and no Mamba layer's state is in them:
+        # off for every model with Mamba layers (the serving CLI asks for it
+        # on every AR stage)
+        self.enable_prefix_cache = enable_prefix_cache and not cfg.has_mamba
         self.scheduler = Scheduler(self.kv, max_batch, token_budget,
                                    chunk_size,
                                    enable_prefix_cache=self.enable_prefix_cache,
                                    prefix_index=prefix_index)
-        if cfg.arch_type in ("ssm", "hybrid"):
+        if not self._paged:
             self.runner: Any = StateRunner(cfg, params, self.kv, max_batch)
-            self._paged = False
             # SSM prefill is one scan: admit whole prompts as one chunk, and
             # budget a step for every slot's whole prompt, so that no prompt
             # is split (the JAX package would restart the state of a split one)
             self.scheduler.chunk_size = self.kv.max_seq
             self.scheduler.token_budget = max(token_budget, max_batch * self.kv.max_seq)
         else:
-            self.runner = PagedRunner(cfg, params, self.kv)
-            self._paged = True
+            self.runner = PagedRunner(cfg, params, self.kv, max_batch)
         self.device = self.runner.device
         # after the runner: the stream first waits for the pools' and the
         # weights' initialisation, queued on the creating thread's stream
@@ -476,7 +479,7 @@ class AREngine:
                 bt = self.scheduler.tables.row(ch.req_id)
                 logits, hidden = self.runner.prefill_chunk(
                     torch.as_tensor(embp, device=self.device)[None], bt, ch.start,
-                    ch.length)
+                    ch.length, slot=seq.slot)
                 last_logits = logits[ch.length - 1]
             else:
                 logits, hidden = self.runner.prefill(

@@ -1,17 +1,26 @@
 """Model runners: the step functions one AR engine executes.
 
-PagedRunner (dense / moe / vlm / audio stages):
+PagedRunner (dense / moe / vlm / audio stages, and the interleaved
+attention / Mamba1 / MoE layers of Jamba, ``cfg.interleaved``):
   - ``prefill_chunk``: process C prompt tokens of ONE request, writing their
     K/V into the request's pages and attending over all its history pages
-    (chunked prefill, Sarathi-style).
+    (chunked prefill, Sarathi-style); a Mamba layer carries the request's
+    slot state from the chunk before (zeroed at the prompt's first chunk).
   - ``decode``: batched one-token step for ALL active slots against the
     shared page pool (vLLM-style paged attention, the CUDA kernel on the
-    card); on the card one CUDA graph of the whole step, replayed.
+    card) and, for Mamba layers, the slots' states (the scan's CUDA
+    kernel); on the card one CUDA graph of the whole step, replayed.
+  Paged KV exists for the attention layers only; beside it each Mamba
+  layer keeps one recurrent state per slot (h in f32, the conv window in
+  the model dtype, as ``models/mamba.py: init_mamba_state``).  What moves
+  pages between requests or stages (prefix-cache copies, PD KV hops)
+  cannot carry such a state, and refuses a model with Mamba layers.
 
-StateRunner (ssm / hybrid stages): a constant-size recurrent state per
-slot (plus a dense KV cache per shared-attention site of the hybrid),
-through the model's ``forward_prefill``/``forward_decode``; every Mamba1
-layer's scan is the CUDA kernel on the card.
+StateRunner (ssm: Falcon-Mamba; hybrid: Zamba2's Mamba2 layers and its
+shared attention block): a constant-size recurrent state per slot (plus
+a dense KV cache per shared-attention site of the hybrid), through the
+model's ``forward_prefill``/``forward_decode``; every Mamba1 layer's
+scan is the CUDA kernel on the card.
 
 The page pools and state caches are updated in place (the JAX package
 donates them to its jitted steps instead).  Writes go only to the
@@ -42,8 +51,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import metrics
 from repro_torch.engine.kv_cache import (PagedKVConfig, init_kv_pages,
                                          init_kv_scale_pages)
-from repro_torch.kernels import ops, paged_attention, ref
+from repro_torch.kernels import mamba_scan, ops, paged_attention, ref
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import moe
 from repro_torch.models import transformer as T
 from repro_torch.sharding.context import get_context
@@ -75,9 +85,11 @@ def kv_from_host(a: np.ndarray, kv_dtype: str | None, device) -> torch.Tensor:
 
 
 class PagedRunner:
-    """Paged-KV execution for attention architectures."""
+    """Paged-KV execution for attention architectures, and for interleaved
+    attention and Mamba1 layers with a recurrent state per slot beside the
+    pages (``max_batch`` slots: the decode batch's rows)."""
 
-    def __init__(self, cfg: ModelConfig, params, kv: PagedKVConfig):
+    def __init__(self, cfg: ModelConfig, params, kv: PagedKVConfig, max_batch: int = 0):
         if cfg.arch_type not in ("dense", "moe", "vlm", "audio"):
             raise NotImplementedError(
                 f"PagedRunner serves attention families, not {cfg.arch_type!r}")
@@ -86,18 +98,32 @@ class PagedRunner:
         self.kv = kv
         self.device = params["lm_head"].device
         self.quant = cfg.kv_cache_dtype == "int8"
-        self.k_pages, self.v_pages = init_kv_pages(cfg, kv, cfg.num_layers, self.device)
+        # each layer's index into its kind's pools (KV pages, Mamba states)
+        self._pool = [sum(k == kind for k in cfg.layer_layout[:i])
+                      for i, kind in enumerate(cfg.layer_layout)]
+        n_attn = cfg.layer_layout.count("A")
+        self.k_pages, self.v_pages = init_kv_pages(cfg, kv, n_attn, self.device)
         if self.quant:
-            self.k_scales, self.v_scales = init_kv_scale_pages(
-                cfg, kv, cfg.num_layers, self.device)
+            self.k_scales, self.v_scales = init_kv_scale_pages(cfg, kv, n_attn, self.device)
         else:
             self.k_scales = self.v_scales = None
-        # per-layer views of the stacked block parameters
-        blocks = params["blocks"]
-        self._layers = [L.tree_map(lambda a, i=i: a[i], blocks)
-                        for i in range(cfg.num_layers)]
+        self.ssm_h = self.ssm_conv = None
+        if cfg.has_mamba:
+            if max_batch < 1:
+                raise ValueError(f"{cfg.name}: a Mamba layer keeps a state per slot, "
+                                 f"so PagedRunner needs max_batch")
+            h, conv = M.init_mamba_state(cfg, max_batch, self.device)
+            n = cfg.layer_layout.count("M")
+            self.ssm_h = h.new_zeros((n, *h.shape))
+            self.ssm_conv = conv.new_zeros((n, *conv.shape))
+        self._layers = T.layer_views(cfg, params)
         self._window = cfg.sliding_window if cfg.attn_variant == "swa" else 0
         self._graph = None          # the decode step's _DecodeGraph, on a CUDA runner
+
+    def _refuse_state(self, what: str) -> None:
+        if self.ssm_h is not None:
+            raise ValueError(f"{what} moves KV pages, which cannot carry the recurrent "
+                             f"state of {self.cfg.name}'s Mamba layers")
 
     # ---- embeds ---------------------------------------------------------
     def embed(self, tokens: np.ndarray) -> np.ndarray:
@@ -129,42 +155,65 @@ class PagedRunner:
 
     # ---- prefill chunk ---------------------------------------------------
     @torch.no_grad()
-    def prefill_chunk(self, embeds, block_table, start, valid_len):
-        """embeds: (1, C, d); block_table: (pp,); start, valid_len: ints.
-        Returns (logits (C, V), hidden (C, d)) on the runner's device."""
+    def prefill_chunk(self, embeds, block_table, start, valid_len, slot=None):
+        """embeds: (1, C, d); block_table: (pp,); start, valid_len: ints;
+        ``slot``: the request's batch slot, which a model with Mamba layers
+        needs: the chunk's valid rows scan on from the slot's state (a zero
+        state at start 0, a prompt's first chunk or a preempted request's
+        recompute) and leave it for the next chunk or decode.  Returns
+        (logits (C, V), hidden (C, d)) on the runner's device."""
         cfg = self.cfg
         page = self.kv.page_size
         h = torch.as_tensor(embeds, device=self.device)
         c = h.shape[1]
         start, valid_len = int(start), int(valid_len)
+        if self.ssm_h is not None:
+            if slot is None:
+                raise ValueError(f"{cfg.name}: a prefill chunk needs its request's slot")
+            metrics.note(**{"mamba_resets" if start == 0 else "mamba_carries": 1})
         bt = torch.as_tensor(np.asarray(block_table), dtype=torch.long,
                              device=self.device)
         pos = start + torch.arange(c, device=self.device)
         positions = pos[None]                                   # (1, C)
         written = pos[:valid_len]                               # padding is not written
-        pid, slot = bt[written // page], written % page
+        pid, wslot = bt[written // page], written % page
         nkv, hd = cfg.num_kv_heads, cfg.head_dim
         for i, lp in enumerate(self._layers):
             hn = L.rmsnorm(lp["ln1"], h, cfg.rmsnorm_eps)
-            q, k, v = L._qkv(cfg, lp["attn"], hn)
-            if cfg.rope_theta:
-                q = L.rope(q, positions, cfg.rope_theta)
-                k = L.rope(k, positions, cfg.rope_theta)
-            self._write_kv(i, k[0, :valid_len], v[0, :valid_len], pid, slot)
-            kp, vp, ksp, vsp = self._layer_pools(i)
-            if self.quant:
-                k_all = (kp[bt].float() * ksp[bt][..., None]).to(h.dtype)
-                v_all = (vp[bt].float() * vsp[bt][..., None]).to(h.dtype)
+            j = self._pool[i]
+            if "mamba" in lp:
+                h = h + self._prefill_mamba(j, lp["mamba"], hn, slot, start, valid_len)
             else:
-                k_all, v_all = kp[bt], vp[bt]
-            k_all = k_all.reshape(1, -1, nkv, hd)
-            v_all = v_all.reshape(1, -1, nkv, hd)
-            o = ref.chunk_attention(q, k_all, v_all, start, window=self._window)
-            h = h + L.unproject(o, lp["attn"]["wo"])
+                q, k, v = L._qkv(cfg, lp["attn"], hn)
+                if cfg.rope_theta:
+                    q = L.rope(q, positions, cfg.rope_theta)
+                    k = L.rope(k, positions, cfg.rope_theta)
+                self._write_kv(j, k[0, :valid_len], v[0, :valid_len], pid, wslot)
+                kp, vp, ksp, vsp = self._layer_pools(j)
+                if self.quant:
+                    k_all = (kp[bt].float() * ksp[bt][..., None]).to(h.dtype)
+                    v_all = (vp[bt].float() * vsp[bt][..., None]).to(h.dtype)
+                else:
+                    k_all, v_all = kp[bt], vp[bt]
+                k_all = k_all.reshape(1, -1, nkv, hd)
+                v_all = v_all.reshape(1, -1, nkv, hd)
+                o = ref.chunk_attention(q, k_all, v_all, start, window=self._window)
+                h = h + L.unproject(o, lp["attn"]["wo"])
             hn = L.rmsnorm(lp["ln2"], h, cfg.rmsnorm_eps)
             h = h + L.mlp_or_moe(cfg, lp, hn)
         logits = T._unembed(cfg, self.params, h)[0]
         return logits, h[0]
+
+    def _prefill_mamba(self, j: int, p: dict, hn, slot: int, start: int, valid: int):
+        """Mamba layer j over a chunk's valid rows, from ``slot``'s state
+        (none at start 0), which it then holds; the padding rows get
+        nothing."""
+        hs, cs = self.ssm_h[j, slot], self.ssm_conv[j, slot]
+        state = None if start == 0 else (hs[None], cs[None].to(hn.dtype))
+        y, (h_last, conv) = M.mamba1_forward(self.cfg, p, hn[:, :valid], state)
+        hs.copy_(h_last[0])
+        cs.copy_(conv[0])
+        return torch.nn.functional.pad(y, (0, 0, 0, hn.shape[1] - valid))
 
     # ---- prefix cache: copy-on-write page copies -------------------------
     @torch.no_grad()
@@ -172,6 +221,7 @@ class PagedRunner:
         """Copy whole KV pages across all layers (copy-on-write: a request
         extending a shared cached page gets a private copy first), in
         place in the pools."""
+        self._refuse_state("a prefix-cache copy-on-write page copy")
         src = torch.as_tensor(np.asarray(src_pages), dtype=torch.long, device=self.device)
         dst = torch.as_tensor(np.asarray(dst_pages), dtype=torch.long, device=self.device)
         pools = [self.k_pages, self.v_pages]
@@ -194,6 +244,7 @@ class PagedRunner:
         caller's current stream, which must be the one that wrote the
         pages (the engine's).
         """
+        self._refuse_state("extract_kv (a PD KV hop)")
         page = self.kv.page_size
         n_pages = -(-n_tokens // page)
         bt = torch.as_tensor(np.asarray(block_table[:n_pages]), dtype=torch.long,
@@ -214,6 +265,7 @@ class PagedRunner:
         """Write transferred prompt KV into this engine's page pool;
         ``kv_dtype`` is ``extract_kv``'s tag (None: the arrays' own type).
         The copy to the device runs on the caller's current stream."""
+        self._refuse_state("inject_kv (a PD KV hop)")
         page = self.kv.page_size
         n_pages = -(-n_tokens // page)
         k_seed, v_seed = np.asarray(k_seed), np.asarray(v_seed)
@@ -282,10 +334,12 @@ class PagedRunner:
         writes the first active row's K/V to that row's slot, so duplicate
         writes carry equal values and every write lands where an active
         row's does (the JAX package sends those rows to page ``num_pages``
-        and drops them).  Returns (logits (B, V), hidden (B, d),
-        ``_routed_experts`` of the MoE layers' routes, the host seconds of
-        the layers' attention and feed-forward halves, enqueueing their
-        kernels)."""
+        and drops them).  A Mamba layer's state is written back for the
+        active rows only: an inactive row's slot may hold a prompt that is
+        still being prefilled, chunk by chunk.  Returns (logits (B, V),
+        hidden (B, d), ``_routed_experts`` of the MoE layers' routes, the
+        host seconds of the layers' mixer and feed-forward halves,
+        enqueueing their kernels)."""
         cfg = self.cfg
         page = self.kv.page_size
         live = active.bool()
@@ -302,16 +356,20 @@ class PagedRunner:
         t_ffn = time.perf_counter()
         for i, lp in enumerate(self._layers):
             hn = L.rmsnorm(lp["ln1"], h, cfg.rmsnorm_eps)
-            q, k, v = L._qkv(cfg, lp["attn"], hn)
-            if cfg.rope_theta:
-                q = L.rope(q, pos_col, cfg.rope_theta)
-                k = L.rope(k, pos_col, cfg.rope_theta)
-            self._write_kv(i, k[src, 0], v[src, 0], pid, slot)
-            kp, vp, ksp, vsp = self._layer_pools(i)
-            o = ops.paged_attention(q[:, 0], kp, vp, tables, seq_lens,
-                                    window=self._window, k_scale_pages=ksp,
-                                    v_scale_pages=vsp)
-            h = h + L.unproject(o.to(h.dtype), lp["attn"]["wo"])[:, None]
+            j = self._pool[i]
+            if "mamba" in lp:
+                h = h + self._decode_mamba(j, lp["mamba"], hn, live)
+            else:
+                q, k, v = L._qkv(cfg, lp["attn"], hn)
+                if cfg.rope_theta:
+                    q = L.rope(q, pos_col, cfg.rope_theta)
+                    k = L.rope(k, pos_col, cfg.rope_theta)
+                self._write_kv(j, k[src, 0], v[src, 0], pid, slot)
+                kp, vp, ksp, vsp = self._layer_pools(j)
+                o = ops.paged_attention(q[:, 0], kp, vp, tables, seq_lens,
+                                        window=self._window, k_scale_pages=ksp,
+                                        v_scale_pages=vsp)
+                h = h + L.unproject(o.to(h.dtype), lp["attn"]["wo"])[:, None]
             t_attn = time.perf_counter()
             attn_s += t_attn - t_ffn
             hn = L.rmsnorm(lp["ln2"], h, cfg.rmsnorm_eps)
@@ -322,14 +380,29 @@ class PagedRunner:
         return (logits, h[:, 0], self._routed_experts(routes, live),
                 {"attn_host_s": attn_s, "ffn_host_s": ffn_s})
 
+    def _decode_mamba(self, j: int, p: dict, hn, live):
+        """Mamba layer j's one step for every row, from and into the slots'
+        states; an inactive row's state is written back as it was."""
+        hs, cs = self.ssm_h[j], self.ssm_conv[j]
+        y, (h_new, conv) = M.mamba1_forward(self.cfg, p, hn, (hs, cs))
+        keep = live[:, None, None]
+        hs.copy_(torch.where(keep, h_new, hs))
+        cs.copy_(torch.where(keep, conv, cs))
+        return y
+
     def _routed_experts(self, routes, live):
-        """The distinct experts the active rows routed to in each MoE
-        layer, (layers,) int64 on the device, from the layers' top-k ids
-        (B, k); None without routes (a dense model, expert parallelism)."""
+        """The distinct experts held here that the active rows routed to in
+        each MoE layer, (layers,) int64 on the device, from the layers'
+        top-k ids (B, k); None without routes (a dense model, expert
+        parallelism)."""
         if not routes:
             return None
         e = self.cfg.num_experts
-        ids = torch.where(live[None, :, None], torch.stack(routes), e)     # (layers, B, k)
+        ids, mine = torch.stack(routes), live[None, :, None]             # (layers, B, k)
+        if self.cfg.router_experts:         # a share of the experts: the held ones
+            ids = ids - self.cfg.expert_offset
+            mine = mine & (ids >= 0) & (ids < e)
+        ids = torch.where(mine, ids, e)
         hit = torch.zeros((ids.shape[0], e + 1), dtype=torch.bool, device=ids.device)
         return hit.scatter_(1, ids.flatten(1), True)[:, :e].sum(1)
 
@@ -339,13 +412,16 @@ class PagedRunner:
         in changes (the shapes, the pools, ``models/moe.py:
         drop_counter``); replayed at every other call."""
         shapes = (tuple(embeds.shape), embeds.dtype, tables.shape)
-        baked = (self.k_pages, self.v_pages, self.k_scales, self.v_scales, moe.drop_counter)
+        baked = (self.k_pages, self.v_pages, self.k_scales, self.v_scales, self.ssm_h,
+                 self.ssm_conv, moe.drop_counter)
         g = self._graph
         if g is not None and g.shapes == shapes \
                 and all(a is b for a, b in zip(g.baked, baked)):
             g.load(embeds, tables, positions, active)
             g.launch()
             paged_attention.launches.add(g.launches)
+            if g.scan_launches:
+                mamba_scan.launches.add(g.scan_launches)
             metrics.note(graph_replays=1)
             if g.routed is not None and metrics.keeping():
                 metrics.keep(routed_experts=g.routed.clone())
@@ -382,8 +458,9 @@ class _DecodeGraph:
     buffers its kernels read (the embeddings, and the tables, positions
     and active mask packed in one int32 vector, filled from pinned host
     memory) and write (``logits``, ``hidden``, ``routed``), the paged-
-    attention wrapper calls it holds (``launches``), the ``shapes`` it was
-    captured at and the tensors it ``baked`` in."""
+    attention and scan wrapper calls it holds (``launches``,
+    ``scan_launches``), the ``shapes`` it was captured at and the tensors
+    it ``baked`` in."""
 
     def __init__(self, device, shapes, baked):
         (b, _, d), dtype, (_, pp) = shapes
@@ -397,7 +474,7 @@ class _DecodeGraph:
         self.copied = torch.cuda.Event()
         self.graph = torch.cuda.CUDAGraph()
         self.logits = self.hidden = self.routed = None
-        self.launches = 0
+        self.launches = self.scan_launches = 0
 
     def load(self, embeds, tables, positions, active) -> None:
         """Copy one step's inputs into the static buffers, on the current
@@ -428,13 +505,17 @@ class _DecodeGraph:
 
     def capture(self, body) -> None:
         with _capture_lock, paged_attention.launches.held() as held, \
+                mamba_scan.launches.held() as scans, \
                 torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.logits, self.hidden, self.routed, _ = body(self.embeds, *self.inputs)
-        self.launches = held[0]
+        self.launches, self.scan_launches = held[0], scans[0]
 
 
 class StateRunner:
-    """Recurrent-state execution for SSM / hybrid architectures.
+    """Recurrent-state execution for the ssm (Falcon-Mamba) and hybrid
+    (Zamba2: Mamba2 layers and one shared attention block) families; a
+    model of interleaved attention and Mamba1 layers (Jamba) is
+    PagedRunner's.
 
     Slots share batched state tensors; prefill is one scan per request
     (an SSM prefill has no chunking: the scan IS the prefill) whose

@@ -251,10 +251,11 @@ def init_block(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
 def mlp_or_moe(cfg: ModelConfig, p: dict, x: torch.Tensor,
                routes: list | None = None) -> torch.Tensor:
-    """The block's feed-forward: the SwiGLU MLP, or the MoE layer (its aux
-    loss dropped, as every serving path of the JAX package drops it;
-    ``routes`` as ``moe.moe_forward`` takes it)."""
-    if cfg.is_moe:
+    """The block's feed-forward, by what ``p`` holds: the SwiGLU MLP
+    (``mlp``), or the MoE layer (``moe``; its aux loss dropped, as every
+    serving path of the JAX package drops it; ``routes`` as
+    ``moe.moe_forward`` takes it)."""
+    if "moe" in p:
         from repro_torch.models import moe as moe_mod
         return moe_mod.moe_forward(cfg, p["moe"], x, routes)[0]
     return mlp(p["mlp"], x)

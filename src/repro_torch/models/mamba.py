@@ -62,6 +62,9 @@ def init_mamba(cfg: ModelConfig, gen: torch.Generator) -> dict:
             "D": full((di,), 1.0),
             "out_proj": _dense_init(gen, (di, d), di, dtype),
         })
+        if cfg.ssm_dt_norms:
+            p.update({"dt_ln": init_rmsnorm(r, dtype, dev), "b_ln": init_rmsnorm(n, dtype, dev),
+                      "c_ln": init_rmsnorm(n, dtype, dev)})
     else:
         nh = n_heads2(cfg)
         conv_ch = di + 2 * n
@@ -103,7 +106,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def mamba1_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, state: tuple | None = None):
     """x: (B, S, d). state: (h (B, di, n), conv (B, cw-1, di)) or None.
-    Returns (y (B, S, d), new_state)."""
+    Returns (y (B, S, d), new_state).  With ``cfg.ssm_dt_norms`` (Jamba)
+    the low-rank dt, B and C go through RMSNorms after ``x_proj``."""
     di, n = cfg.d_inner, cfg.ssm_state
     r = dt_rank(cfg)
     h0, conv0 = state if state is not None else (None, None)
@@ -111,8 +115,12 @@ def mamba1_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, state: tuple | No
     xs, z = xz[..., :di], xz[..., di:]
     xs, conv_state = _causal_conv(xs, p["conv_w"], p["conv_b"], conv0)
     proj = matmul(xs, p["x_proj"])                            # (B, S, r+2n)
-    dt = softplus(matmul(proj[..., :r], p["dt_proj"]) + p["dt_bias"].to(x.dtype))
-    Bm, Cm = proj[..., r:r + n], proj[..., r + n:]
+    dtr, Bm, Cm = proj[..., :r], proj[..., r:r + n], proj[..., r + n:]
+    if cfg.ssm_dt_norms:
+        eps = cfg.rmsnorm_eps
+        dtr = rmsnorm(p["dt_ln"], dtr, eps)
+        Bm, Cm = rmsnorm(p["b_ln"], Bm, eps), rmsnorm(p["c_ln"], Cm, eps)
+    dt = softplus(matmul(dtr, p["dt_proj"]) + p["dt_bias"].to(x.dtype))
     A = -torch.exp(p["A_log"])                                # (di, n)
     y, h = ops.mamba1_scan(xs, dt, A, Bm, Cm, p["D"], h0)
     y = y * F.silu(z)

@@ -33,10 +33,12 @@ drop_counter: torch.Tensor | None = None
 
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """The router over all ``router_width`` experts; the weights of the
+    ``num_experts`` held here."""
     E, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
     dtype = torch_dtype(cfg.dtype)
     return {
-        "router": _dense_init(gen, (d, E), d, torch.float32),
+        "router": _dense_init(gen, (d, cfg.router_width), d, torch.float32),
         "wg": _dense_init(gen, (E, d, f), d, dtype),
         "wu": _dense_init(gen, (E, d, f), d, dtype),
         "wd": _dense_init(gen, (E, f, d), f, dtype),
@@ -44,7 +46,7 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
 
 def capacity(tokens: int, cfg: ModelConfig) -> int:
-    c = math.ceil(tokens * cfg.experts_per_token / cfg.num_experts
+    c = math.ceil(tokens * cfg.experts_per_token / cfg.router_width
                   * cfg.capacity_factor)
     return max(8, min(c, tokens))
 
@@ -64,12 +66,15 @@ def bincount(ids: torch.Tensor, n: int) -> torch.Tensor:
         0, ids, torch.ones_like(ids))
 
 
-def route(router: torch.Tensor, xf: torch.Tensor, k: int):
-    """The router in f32: (gates (T, E), top-k weights renormalised (T, k),
-    top-k expert ids (T, k))."""
+def route(router: torch.Tensor, xf: torch.Tensor, k: int, renormalize: bool = True):
+    """The router in f32: (gates (T, E), top-k weights (T, k), top-k expert
+    ids (T, k)); the weights renormalised to sum to one, or as the softmax
+    over all E gives them."""
     logits = matmul(xf.float(), router)                    # (T, E), f32
     gates = torch.softmax(logits, dim=-1)
     topw, topi = top_k(gates, k)                           # (T, k)
+    if not renormalize:
+        return gates, topw, topi
     return gates, topw / topw.sum(dim=-1, keepdim=True), topi
 
 
@@ -125,21 +130,27 @@ def experts(xf: torch.Tensor, topw: torch.Tensor, topi: torch.Tensor, wg: torch.
 def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, routes: list | None = None):
     """x: (B, S, d) -> (y (B, S, d), aux_loss scalar f32).  ``routes``: a
     list that the dense dispatch appends its top-k expert ids (B*S, k) to
-    (expert parallelism appends nothing)."""
+    (expert parallelism appends nothing).  With a share of the experts
+    held (``cfg.router_experts``), the router scores all of them and y is
+    the held experts' part, as one card of expert parallelism computes it
+    before the exchange; the aux loss is that share's part too."""
     from repro_torch.models import moe_ep
     if moe_ep.ep_applicable(cfg):
         return moe_ep.moe_forward_ep(cfg, p, x)
     B, S, d = x.shape
-    E, k = cfg.num_experts, cfg.experts_per_token
+    E, k, lo = cfg.num_experts, cfg.experts_per_token, cfg.expert_offset
     T = B * S
     xf = x.reshape(T, d)
-    gates, topw, topi = route(p["router"], xf, k)
+    if cfg.renormalize_topk:                               # route's call as taps wrap it
+        gates, topw, topi = route(p["router"], xf, k)
+    else:
+        gates, topw, topi = route(p["router"], xf, k, renormalize=False)
     if routes is not None:
         routes.append(topi)
-    y, counts = experts(xf, topw, topi, p["wg"], p["wu"], p["wd"], 0, capacity(T, cfg))
+    y, counts = experts(xf, topw, topi, p["wg"], p["wu"], p["wd"], lo, capacity(T, cfg))
 
     # ---- load-balance aux loss (Switch-style) --------------------------
     frac = counts.float() / (T * k)                        # dispatch fraction
-    prob = gates.mean(dim=0)                               # mean router prob
-    aux = cfg.router_aux_coef * E * torch.sum(frac * prob)
+    prob = gates.mean(dim=0)[lo:lo + E]                    # mean router prob
+    aux = cfg.router_aux_coef * cfg.router_width * torch.sum(frac * prob)
     return y.reshape(B, S, d), aux

@@ -10,10 +10,15 @@ dense / MoE / SSM / hybrid / encoder / VLM configs.
 Layer parameters stack over a leading axis (``blocks``; ``mamba`` for the
 SSM and hybrid families, whose hybrid also has ONE ``shared_attn`` block
 applied after every ``shared_attn_every`` Mamba layers, with a KV cache
-per application site).  The serving engines run the attention families
+per application site).  A model of interleaved layer kinds (Jamba,
+``cfg.interleaved``) stacks each kind apart: ``attn`` and ``mamba``
+mixers, ``mlp`` and ``moe`` feed-forwards, each row with its own norm
+(``ln``); ``layer_views`` gives any model's layers one by one.  The
+serving engines run the attention families and the interleaved kinds
 through ``engine/runner.py``'s paged KV pool; these dense-cache paths
-serve the monolithic baseline and the recurrent-state runner.  The
-layers loop in Python where the JAX package scans them.
+serve the monolithic baseline and the recurrent-state runner, and
+refuse interleaved kinds.  The layers loop in Python where the JAX
+package scans them.
 
 ``forward_decode`` updates the cache in place (the JAX package returns a
 new one): a full-width cache is not copied every step.
@@ -33,10 +38,11 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LAYER_ATTN, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import moe
 
 _STATE_FAMILIES = ("ssm", "hybrid")
 _ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
@@ -56,13 +62,56 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
         p["embed"] = emb
     p["final_ln"] = L.init_rmsnorm(cfg.d_model, dtype, gen.device)
     p["lm_head"] = L._dense_init(gen, (cfg.d_model, cfg.vocab_size), cfg.d_model, dtype)
-    if cfg.arch_type in _STATE_FAMILIES:
+    if cfg.interleaved:
+        p.update(_init_kinds(cfg, gen))
+    elif cfg.arch_type in _STATE_FAMILIES:
         p["mamba"] = L.stack_init(lambda g: M.init_mamba(cfg, g), gen, cfg.num_layers)
         if cfg.arch_type == "hybrid":
             p["shared_attn"] = L.init_block(cfg, gen)    # one block, shared by every site
     else:
         p["blocks"] = L.stack_init(lambda g: L.init_block(cfg, g), gen, cfg.num_layers)
     return p
+
+
+def layer_kinds(cfg: ModelConfig) -> list:
+    """(mixer, feed-forward) stack names of each layer of an interleaved
+    model: ``attn`` or ``mamba``, ``moe`` or ``mlp``."""
+    return [("attn" if kind == LAYER_ATTN else "mamba",
+             "moe" if cfg.is_moe_layer(i) else "mlp")
+            for i, kind in enumerate(cfg.layer_layout)]
+
+
+def _init_kinds(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """The per-kind stacks of an interleaved model, each row with its norm
+    (a Mamba layer's ``init_mamba`` draws its own)."""
+    dtype = L.torch_dtype(cfg.dtype)
+
+    def with_ln(init):
+        return lambda g: {"ln": L.init_rmsnorm(cfg.d_model, dtype, g.device), **init(cfg, g)}
+
+    inits = {"attn": with_ln(L.init_attention), "mamba": lambda g: M.init_mamba(cfg, g),
+             "mlp": with_ln(L.init_mlp), "moe": with_ln(moe.init_moe)}
+    kinds = [k for pair in layer_kinds(cfg) for k in pair]
+    return {k: L.stack_init(init, gen, kinds.count(k))
+            for k, init in inits.items() if k in kinds}
+
+
+def layer_views(cfg: ModelConfig, params: dict) -> list:
+    """Each layer's parameters as one dict, views of the stacked leaves:
+    a ``blocks`` row for the attention families; for interleaved kinds
+    ``ln1`` and the ``attn`` or ``mamba`` mixer, ``ln2`` and the ``mlp``
+    or ``moe`` feed-forward, from their stacks' rows."""
+    if not cfg.interleaved:
+        return [_block(params, i) for i in range(cfg.num_layers)]
+    seen = {k: 0 for k in ("attn", "mamba", "mlp", "moe")}
+    out = []
+    for mixer, ffn in layer_kinds(cfg):
+        m = L.tree_map(lambda a, j=seen[mixer]: a[j], params[mixer])
+        f = L.tree_map(lambda a, j=seen[ffn]: a[j], params[ffn])
+        seen[mixer] += 1
+        seen[ffn] += 1
+        out.append({"ln1": m["ln"], mixer: m, "ln2": f["ln"], ffn: f})
+    return out
 
 
 def _embed(cfg: ModelConfig, params: dict, inputs: torch.Tensor) -> torch.Tensor:
@@ -88,6 +137,9 @@ def _layer(params: dict, i: int) -> dict:
 def _check_family(cfg: ModelConfig, what: str) -> None:
     if cfg.arch_type not in _STATE_FAMILIES + _ATTN_FAMILIES:
         raise NotImplementedError(f"{what}: no {cfg.arch_type!r} family in the port")
+    if cfg.interleaved:
+        raise NotImplementedError(f"{what}: {cfg.name} interleaves attention and Mamba "
+                                  f"layers, which engine/runner.py: PagedRunner serves")
 
 
 def _block(params: dict, i: int) -> dict:

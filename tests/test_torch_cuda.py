@@ -953,3 +953,65 @@ def test_tiny_train_step_cuda_matches_ref(cuda, remat):
     torch.testing.assert_close(out["cuda"][0], out["ref"][0], **tol)
     for g, w in zip(opt.leaves(out["cuda"][2]), opt.leaves(out["ref"][2])):
         torch.testing.assert_close(g, w, **tol)
+
+
+# ---------------------------------------------------------------------------
+# the decode graph of interleaved attention, Mamba1 and MoE layers (Jamba)
+# ---------------------------------------------------------------------------
+
+def _hybrid_pair(cfg, gen):
+    """Two Jamba runners over one set of weights and equal random pools and
+    Mamba states: one decodes through its graph, the other runs the eager
+    body."""
+    from repro_torch.engine.kv_cache import PagedKVConfig
+    from repro_torch.engine.runner import PagedRunner
+    from repro_torch.models import transformer as T
+    params = T.init_params(cfg, gen)
+    kv = PagedKVConfig(num_pages=GRAPH_B * GRAPH_PP + 8, page_size=GRAPH_PAGE,
+                       max_pages_per_seq=GRAPH_PP)
+    graph, eager = (PagedRunner(cfg, params, kv, max_batch=GRAPH_B) for _ in range(2))
+    for name in ("k_pages", "v_pages", "ssm_h", "ssm_conv"):
+        t = getattr(graph, name)
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda").to(t.dtype))
+        getattr(eager, name).copy_(t)
+    return graph, eager
+
+
+def test_hybrid_decode_graph_replays_the_eager_step_bit_for_bit(cuda, monkeypatch):
+    """Jamba's smoke period (7 Mamba layers, 1 attention, 4 MoE): eight
+    steps, the first eager and captured, seven replayed, each bit for bit
+    the eager body's (logits, hidden states, pools, Mamba states, the held
+    experts kept); an inactive row's state, a slot whose prompt is still
+    being prefilled, stays as it was."""
+    from repro_torch.configs.jamba2_mini import SMOKE_CONFIG
+    from repro_torch.models import moe
+    cfg = SMOKE_CONFIG
+    graph, eager = _hybrid_pair(cfg, cuda)
+    monkeypatch.setattr(moe, "drop_counter", torch.zeros((), dtype=torch.long, device="cuda"))
+    scans = cfg.layer_layout.count("M")
+    for i, step in enumerate(_decode_steps(cfg, cuda, seed=3)):
+        before = graph.ssm_h.clone(), graph.ssm_conv.clone()
+        n, n_scan = pa.launches.value, ms.launches.value
+        _same_step(graph, eager, step)
+        assert pa.launches.value == n + 2 and ms.launches.value == n_scan + 2 * scans
+        idle = torch.as_tensor(~step[3], device="cuda")
+        for now, want, was in ((graph.ssm_h, eager.ssm_h, before[0]),
+                               (graph.ssm_conv, eager.ssm_conv, before[1])):
+            assert torch.equal(now, want)
+            assert torch.equal(now[:, idle], was[:, idle])
+    assert graph._graph.scan_launches == scans and graph._graph.launches == 1
+
+
+def test_hybrid_capture_holds_each_layers_kernel_at_the_published_depth(cuda):
+    """32 layers in Jamba's layout: the capture holds 28 scan and 4
+    paged-attention calls, and each replay counts them."""
+    from repro_torch.configs.jamba2_mini import SMOKE_CONFIG
+    cfg = SMOKE_CONFIG.replace(num_layers=32)
+    graph, _ = _hybrid_pair(cfg, cuda)
+    steps = _decode_steps(cfg, cuda, seed=4, n=2)
+    graph.decode(*steps[0])
+    assert (graph._graph.scan_launches, graph._graph.launches) == (28, 4)
+    n, n_scan = pa.launches.value, ms.launches.value
+    graph.decode(*steps[1])
+    torch.cuda.synchronize()
+    assert (pa.launches.value - n, ms.launches.value - n_scan) == (4, 28)

@@ -96,8 +96,10 @@ def test_no_forbidden_import_statement(path):
 
 
 # what the port has beside the JAX package's modules: the weight converter,
-# the device rule, the connector's tree codec and the kernels' build
-PORT_EXTRAS = {"convert.py", "device.py", "connector/tree.py", "kernels/build.py"}
+# the device rule, the connector's tree codec, the kernels' build and the
+# configuration of a model the JAX package does not lay out (Jamba)
+PORT_EXTRAS = {"convert.py", "device.py", "connector/tree.py", "kernels/build.py",
+               "configs/jamba2_mini.py"}
 
 
 def _py_files(root: pathlib.Path) -> set:
