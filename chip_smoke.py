@@ -6,7 +6,7 @@
 Phases, each printing one JSON line with its wall time:
   1. device   — the card's name and power limit (nvidia-smi) and its
                 compute capability, which must be (9, 0);
-  2. build    — the four CUDA sources built from
+  2. build    — the five CUDA sources built from
                 ``src/repro_torch/kernels/csrc`` for sm_90a (one nvcc per
                 source, started together), with each kernel's registers and
                 spills from ``-Xptxas -v`` (a spill, or ptxas serializing
@@ -31,7 +31,12 @@ Phases, each printing one JSON line with its wall time:
                 training shapes, the smoke configs' in f32 and bf16 (small
                 grids the mma route splits), a window, Zamba2's shared
                 attention and ragged S, timed beside autograd of SDPA and
-                split by kernel by the profiler;
+                split by kernel by the profiler; the f32 x bf16 product
+                (``mixed_gemm``) at every prefill product of a chunk of
+                Jamba2-Mini and Qwen3-30B-A3B (the MoE layers' experts
+                through its grouped form) and at ragged M, K and N, beside
+                the widening it replaces (plain) and cuBLAS's SGEMM over a
+                weight widened beforehand (library), with each chunk's sums;
   4. qwen_omni — the Thinker -> Talker -> DiT-vocoder pipeline served
                 through the port's threaded Orchestrator: two greedy runs,
                 backend "cuda" and backend "ref", whose Thinker and Talker
@@ -47,7 +52,8 @@ Phases, each printing one JSON line with its wall time:
                 (completion, output shapes, launches per run), and the CNN
                 vocoder's latents against its plain f32 conv on the CPU;
   5. full_width — Qwen2.5-14B at its published width served as a one-stage
-                AR graph (8 requests, 32 greedy tokens each), then one
+                AR graph (8 requests, 32 greedy tokens each; the f32
+                prefill's products must launch ``mixed_gemm``), then one
                 batched decode step with backend "cuda" against "ref";
   5b. pd_full_width — InternLM2-1.8B at its published width and depth
                 served three ways on the same weights (8 requests of
@@ -134,7 +140,8 @@ With ``--against TREE`` (another commit's checkout, e.g. the parent
 unpacked with git archive) it runs none of the phases: it measures the
 flash backward's mma cases, the mma forward and HuBERT-XLarge's training
 step from TREE and from this tree in turns, one process a turn
-(``run_against``).
+(``run_against``).  With ``--kernel mixed_gemm`` it builds that kernel
+and runs its cases of phase 3 alone.
 Then the ``{"kernels": [...]}`` line (launch counts of the runs that use
 each kernel, each counted from 0) and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero before the last line.  Without a
@@ -162,7 +169,12 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # flash route computes f32 as three TF32 products ("tf32x3"): its bound
 # counts three times the operations at the TF32 rate
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3,
+              "bf16x3": 989e12 / 3}
+# the f32 x bf16 kernel (three bf16 parts of each activation, "bf16x3")
+# against the promoted f32 product: both f32 sums in other orders, held
+# to 1e-5 of the largest |y| (tests/test_torch_cuda.py's MIXED_TOL)
+MIXED_TOL = 1e-5
 # the forward's lse (log2 units, magnitude ~10) against the plain
 # version's on the same bf16 inputs: both f32, summed in other orders
 LSE_TOL = 1e-4
@@ -294,7 +306,8 @@ class Timer:
 # each kernel of the port by the prefix of its __global__ functions'
 # names in the profiler's events (the scan's three passes are mamba1_*)
 PORT_KERNELS = {"paged_attention": "paged_attention_", "flash_attention": "flash_attention_",
-                "flash_attention_bwd": "flash_attention_bwd_", "mamba1_scan": "mamba1_"}
+                "flash_attention_bwd": "flash_attention_bwd_", "mamba1_scan": "mamba1_",
+                "mixed_gemm": "mixed_gemm_"}
 # the profiler's own device events, left out of every device time
 PROFILER_OVERHEAD = ("Activity Buffer Request", "Runtime Triggered Module Loading",
                      "Lazy Function Loading")
@@ -662,6 +675,142 @@ def mamba_continuation_case(torch, split, *, Bt=1, S=512, di=8192, n=16, seed=5)
             "ok": ok_y and ok_h}
 
 
+MIXED_LIBRARY_GROUPED = ("three batched products of the capacity buffer against the "
+                         "weights widened beforehand")
+
+
+def mixed_case(torch, timer, name, *, M, K, N, seed=0):
+    """The plain form at (M, K) f32 x (K, N) bf16: the kernel against the
+    promoted product (plain: widen the weight, then cuBLAS's f32 SGEMM;
+    library: the SGEMM alone over a weight widened beforehand)."""
+    from repro_torch.kernels import mixed_gemm as mg
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device="cuda")
+    w = (torch.randn((K, N), generator=g, device="cuda") / K ** 0.5).to(torch.bfloat16)
+    got, want = mg.matmul(x, w), ref.mixed_matmul(x, w)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = err <= MIXED_TOL * float(want.abs().max()) and bool(got.isfinite().all())
+    kernel_ms = timer(lambda: mg.matmul(x, w))
+    plain_ms = timer(lambda: ref.mixed_matmul(x, w))
+    wf = w.float()
+    library_ms = timer(lambda: torch.matmul(x, wf))
+    del wf
+    p = mg.plan(M, K, N)
+    b_ms, b_by = bound(2 * K * N + 4 * M * K + 4 * M * N, 2 * M * K * N, "bf16x3")
+    return {"case": f"{name} [{p.splits} split{'s' if p.splits > 1 else ''}]", "M": M, "K": K,
+            "N": N, "dtype": "float32 x bfloat16", "splits": p.splits,
+            "kernel_launches_per_call": p.kernel_launches, "max_abs_err": err, "ok": ok,
+            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def mixed_grouped_case(torch, timer, name, *, T, d, f, E, width, k, seed=0):
+    """The grouped form over one MoE layer's experts (E held of ``width``,
+    T tokens routed top-k at random): its two calls (gate and up, then
+    down) against the capacity buffer's dispatch of widened weights
+    (``models/moe.py: _buffer_pairs``), dropless; bytes: the weights of
+    the held experts that kept a pair, the tokens read and the outputs
+    written."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import mixed_gemm as mg
+    from repro_torch.models import moe
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xf = torch.randn((T, d), generator=g, device="cuda")
+    topi = torch.argsort(torch.rand((T, width), generator=g, device="cuda"), dim=1)[:, :k]
+    ws = [(torch.randn(shape, generator=g, device="cuda") / shape[1] ** 0.5)
+          .to(torch.bfloat16) for shape in ((E, d, f), (E, d, f), (E, f, d))]
+    e_flat = torch.where(topi < E, topi, E).reshape(-1)
+    sort_idx = torch.argsort(e_flat, stable=True)
+    e_sorted = e_flat[sort_idx]
+    counts = moe.bincount(e_flat, E + 1)
+    offsets = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(T * k, device="cuda") - offsets[e_sorted]
+    keep = (e_sorted < E) & (pos < T)
+    tok = sort_idx // k
+
+    def kernel():
+        gg, uu = mg.grouped(xf, ws[:2], tok, offsets, counts, T)
+        return mg.grouped(F.silu(gg) * uu, ws[2:], None, offsets, counts, T)[0]
+
+    def plain():
+        return moe._buffer_pairs(xf, tok, e_sorted, pos, keep, *ws, T)
+
+    wfs = [w.float() for w in ws]
+
+    def library():
+        buf = torch.zeros((E * T + 1, d), device="cuda")
+        buf[torch.where(keep, e_sorted * T + pos, E * T)] = xf[tok]
+        buf = buf[:E * T].view(E, T, d)
+        return torch.matmul(F.silu(torch.matmul(buf, wfs[0])) * torch.matmul(buf, wfs[1]),
+                            wfs[2])
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    rows = keep.nonzero()[:, 0]
+    err = float((got[rows] - want[rows]).abs().max())
+    ok = err <= MIXED_TOL * float(want[rows].abs().max()) and bool(got[rows].isfinite().all())
+    kernel_ms, plain_ms, library_ms = timer(kernel), timer(plain), timer(library)
+    del wfs
+    held = int((counts[:E] > 0).sum())
+    kept = int(keep.sum())
+    nbytes = held * 3 * d * f * 2 + kept * (4 * d + 2 * 4 * f + 4 * f + 4 * d)
+    flops = 2 * kept * 3 * d * f
+    b_ms, b_by = bound(nbytes, flops, "bf16x3")
+    return {"case": name, "T": T, "d": d, "f": f, "E": E, "router_width": width, "k": k,
+            "experts_with_pairs": held, "pairs_kept": kept, "dtype": "float32 x bfloat16",
+            "kernel_launches_per_call": 2, "max_abs_err": err, "ok": ok, "ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "library": MIXED_LIBRARY_GROUPED,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+# every prefill product of a 64-row chunk: (name, M, K, N, times a chunk)
+MIXED_PLAIN = {
+    "jamba2-mini": [("in_proj", 64, 4096, 16384, 28), ("x_proj", 64, 8192, 288, 28),
+                    ("dt_proj", 64, 256, 8192, 28), ("out_proj", 64, 8192, 4096, 28),
+                    ("q, o", 64, 4096, 4096, 8), ("k, v", 64, 4096, 1024, 8),
+                    ("mlp gate, up", 64, 4096, 14336, 32), ("mlp down", 64, 14336, 4096, 16),
+                    ("head", 64, 4096, 65536, 1)],
+    "qwen3-30b-a3b": [("q", 64, 2048, 4096, 48), ("k, v", 64, 2048, 512, 96),
+                      ("o", 64, 4096, 2048, 48), ("head", 64, 2048, 151936, 1)],
+}
+# one MoE layer's experts a chunk: (name, T, d, f, E held, router width, k, layers)
+MIXED_GROUPED = {
+    "jamba2-mini": ("experts, 8 held of 16, top-2", 64, 4096, 14336, 8, 16, 2, 16),
+    "qwen3-30b-a3b": ("experts, 128, top-8", 64, 2048, 768, 128, 128, 8, 48),
+}
+
+
+def mixed_cases(torch, timer):
+    """The f32 x bf16 kernel at every prefill product of a chunk of the two
+    benchmark configurations, a ragged M and N, and the chunk's sums: each
+    product's time, bound and plain time times its count a chunk."""
+    cases, chunks = [], {}
+    s = 0
+    for model, products in MIXED_PLAIN.items():
+        rows = []
+        for name, M, K, N, count in products:
+            c = mixed_case(torch, timer, f"{model} {name}", M=M, K=K, N=N, seed=s)
+            c["per_chunk"] = count
+            rows.append(c)
+            s += 1
+        name, T, d, f, E, width, k, layers = MIXED_GROUPED[model]
+        c = mixed_grouped_case(torch, timer, f"{model} {name}", T=T, d=d, f=f, E=E,
+                               width=width, k=k, seed=s)
+        c["per_chunk"] = layers
+        rows.append(c)
+        s += 1
+        chunks[model] = {key: sum(r[key] * r["per_chunk"] for r in rows)
+                         for key in ("ms", "bound_ms", "plain_ms", "library_ms")}
+        cases += rows
+    for M, K, N in ((1, 4096, 65536), (19, 4096, 4096), (19, 100, 40)):
+        cases.append(mixed_case(torch, timer, f"ragged M {M}, K {K}, N {N}", M=M, K=K, N=N,
+                                seed=s))
+        s += 1
+    return cases, chunks
+
+
 def phase_kernels(torch, F):
     from repro_torch.kernels import mamba_scan as ms
     timer = Timer(torch)
@@ -787,8 +936,9 @@ def phase_kernels(torch, F):
         flash_bwd_case(torch, F, timer, "hubert-xlarge train f32 non-causal hd 80", B=4,
                        S=1000, nq=16, nkv=16, hd=80, dtype="float32", causal=False, seed=40),
     ]
+    mixed, _ = mixed_cases(torch, timer)
     return {"paged_attention": paged, "flash_attention": flash, "flash_attention_bwd": bwd,
-            "mamba1_scan": scan}
+            "mamba1_scan": scan, "mixed_gemm": mixed}
 
 
 # ---------------------------------------------------------------------------
@@ -1168,6 +1318,7 @@ def serve_paged_full_width(torch, arch, *, prefix_cache, n_requests=8, max_new=3
     from repro_torch.core.request import Request
     from repro_torch.engine.sampling import SamplingParams
     from repro_torch.kernels import ops
+    from repro_torch.kernels import mixed_gemm as mg
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch.serve import build_single_arch
     from repro_torch.models import moe
@@ -1201,9 +1352,9 @@ def serve_paged_full_width(torch, arch, *, prefix_cache, n_requests=8, max_new=3
         counter.zero_()
         return n
 
-    def timed_prefill(embeds, block_table, start, valid_len):
+    def timed_prefill(embeds, block_table, start, valid_len, slot=None):
         t = time.perf_counter()
-        out = prefill(embeds, block_table, start, valid_len)
+        out = prefill(embeds, block_table, start, valid_len, slot=slot)
         torch.cuda.synchronize()
         stats["prefill_s"] += time.perf_counter() - t
         stats["prefill_tokens"] += int(valid_len)
@@ -1238,6 +1389,7 @@ def serve_paged_full_width(torch, arch, *, prefix_cache, n_requests=8, max_new=3
     ops.set_backend("cuda")
     moe.drop_counter = counter
     pa.launches.reset()
+    mg.launches.reset()
     t0 = time.perf_counter()
     try:
         orch.start()
@@ -1251,6 +1403,7 @@ def serve_paged_full_width(torch, arch, *, prefix_cache, n_requests=8, max_new=3
         runner.prefill_chunk, runner.decode, eng._sample = prefill, decode, sample
     wall = time.perf_counter() - t0
     launches = pa.launches.value
+    mixed_launches = mg.launches.value
     done = [r for r in reqs if r.completion_time is not None and not r.failed]
     if len(done) != len(reqs):
         fail(f"{arch}: {len(done)}/{len(reqs)} requests completed: "
@@ -1261,6 +1414,8 @@ def serve_paged_full_width(torch, arch, *, prefix_cache, n_requests=8, max_new=3
             fail(f"{arch}: request {r.req_id} produced {toks.shape} tokens")
     if launches <= 0:
         fail(f"{arch}: the paged attention kernel was not launched")
+    if mixed_launches <= 0:
+        fail(f"{arch}: the f32 prefill's products did not go through mixed_gemm")
     ttft = sorted(first_token[r.req_id] - r.arrival_time for r in reqs)
     jct = sorted(r.jct for r in reqs)
     peak = torch.cuda.max_memory_allocated()
@@ -1294,6 +1449,7 @@ def serve_paged_full_width(torch, arch, *, prefix_cache, n_requests=8, max_new=3
            "ttft_p50_s": ttft[len(ttft) // 2], "jct_p50_s": jct[len(jct) // 2],
            "jct_p95_s": jct[min(len(jct) - 1, int(0.95 * len(jct)))],
            "jct_max_s": jct[-1], "paged_launches": launches,
+           "mixed_launches": mixed_launches,
            "paged_launches_per_request": launches / len(reqs),
            "device_free_gb_before_init": free_before / 1e9, "device_total_gb": total / 1e9,
            "max_memory_allocated_gb": peak / 1e9, **check}
@@ -2503,7 +2659,7 @@ class PdTaps:
     def _wrap(self, obj, attr, tap):
         inner = getattr(obj, attr)
         self._undo.append((obj, attr, inner))
-        setattr(obj, attr, lambda *a: tap(inner, *a))
+        setattr(obj, attr, lambda *a, **kw: tap(inner, *a, **kw))
 
     def undo(self):
         for obj, attr, inner in reversed(self._undo):
@@ -2526,9 +2682,9 @@ class PdTaps:
             self.decode_tokens += self._active
         return out
 
-    def _prefill_chunk(self, inner, *a):
+    def _prefill_chunk(self, inner, *a, **kw):
         self._prefilled = True
-        return inner(*a)
+        return inner(*a, **kw)
 
     def _decode(self, inner, embeds, tables, positions, active):
         import numpy as np
@@ -3290,14 +3446,18 @@ KERNEL_META = {
     "mamba1_scan": {
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan.py:58"},
+    "mixed_gemm": {
+        "source": "src/repro_torch/kernels/csrc/mixed_gemm.cu",
+        "replaces": "none: XLA's f32 product of a promoted bf16 weight"},
 }
 
 
 # a kernel's name and template arguments inside a mangled name (ptxas) or
 # a demangled one (the profiler): every __global__ of the port is
-# flash_attention_*_kernel, paged_attention_*_kernel or mamba1_*_kernel
+# flash_attention_*_kernel, paged_attention_*_kernel, mamba1_*_kernel or
+# mixed_gemm_*kernel
 KERNEL_NAME = re.compile(
-    r"((?:flash_attention|paged_attention|mamba1)_[a-z_]*?kernel)(I.*?EE|<[^>]*>)?")
+    r"((?:flash_attention|paged_attention|mamba1|mixed_gemm)_[a-z_]*?kernel)(I.*?EE|<[^>]*>)?")
 
 
 def kernel_name(text: str):
@@ -3346,6 +3506,9 @@ def main() -> int:
                              "the mma forward and HuBERT-XLarge's training step from this "
                              "tree and from TREE (another commit's checkout) in turns")
     parser.add_argument("--turn", metavar="SRC", help=argparse.SUPPRESS)
+    parser.add_argument("--kernel", choices=["mixed_gemm"],
+                        help="instead of the phases, build this kernel and run its cases "
+                             "of phase 3 alone, with each chunk's sums")
     args = parser.parse_args()
 
     import torch
@@ -3385,7 +3548,8 @@ def main() -> int:
         fail(f"compute capability {cap}, need (9, 0)")
 
     t = time.perf_counter()
-    built = build.build(sorted({library_of(k) for k in KERNEL_META}))
+    names = [args.kernel] if args.kernel else list(KERNEL_META)
+    built = build.build(sorted({library_of(k) for k in names}))
     entries = {k: ptxas_entries(str(v["log"])) for k, v in built.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t, "flags": build.NVCC_FLAGS,
           "kernels": {k: {"seconds": v["seconds"], "cached": v["cached"],
@@ -3401,6 +3565,18 @@ def main() -> int:
                   if "wgmma" in a["advisory"].lower() or "wgmma" in str(a["kernel"])]
     if serialized:
         fail(f"ptxas serializes wgmma: {serialized}")
+    if args.kernel:
+        t = time.perf_counter()
+        cases, chunks = mixed_cases(torch, Timer(torch))
+        emit({"phase": "kernels", "seconds": time.perf_counter() - t,
+              "cases": {args.kernel: cases}, "per_chunk": chunks})
+        bad = [c["case"] for c in cases if not c["ok"]]
+        if bad:
+            fail(f"{args.kernel} disagrees with its plain version: {bad}")
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     t = time.perf_counter()
     cases = phase_kernels(torch, F)
@@ -3487,7 +3663,9 @@ def main() -> int:
                   "train_full_width": train["launches"]["flash_attention_bwd"],
                   "train_full_width.launcher": train["launcher"]["flash_bwd_launches"],
                   "train_full_width.tiny_lm": train["tiny_lm"]["flash_bwd_launches"]},
-              "mamba1_scan": {"ssm_full_width": ssm["launches"]}}
+              "mamba1_scan": {"ssm_full_width": ssm["launches"]},
+              "mixed_gemm": {"full_width": full["mixed_launches"],
+                             "moe_full_width": moe["mixed_launches"]}}
     for name, n in pipe_launches.items():
         for k in ("paged_attention", "flash_attention"):
             if n[k]:

@@ -31,9 +31,10 @@ slot writes what its first active slot writes, to the same place.  A
 MoE layer routes every row of its input, as the JAX runner does: a
 prefill chunk's padding and a decode batch's inactive slots take expert
 capacity too, so the same pairs are dropped.  Prefill runs with the f32
-activations its f32 embeddings give (bf16 weights are promoted, as
-``jnp`` promotes them); decode runs in the model dtype.  PagedRunner
-returns final-layer hidden states so stage-transfer functions can
+activations its f32 embeddings give (f32 arithmetic against bf16
+weights, as ``jnp`` promotes them; on the card the weights are read in
+place, ``kernels/mixed_gemm.py``); decode runs in the model dtype.
+PagedRunner returns final-layer hidden states so stage-transfer functions can
 forward them downstream (e.g. Thinker hidden states → Talker);
 StateRunner, as in the JAX package, returns none.
 """
@@ -51,7 +52,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import metrics
 from repro_torch.engine.kv_cache import (PagedKVConfig, init_kv_pages,
                                          init_kv_scale_pages)
-from repro_torch.kernels import mamba_scan, ops, paged_attention, ref
+from repro_torch.kernels import build, mamba_scan, ops, paged_attention, ref
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe
@@ -119,6 +120,12 @@ class PagedRunner:
         self._layers = T.layer_views(cfg, params)
         self._window = cfg.sliding_window if cfg.attn_variant == "swa" else 0
         self._graph = None          # the decode step's _DecodeGraph, on a CUDA runner
+        if self.device.type == "cuda" and ops.get_backend() != "ref":
+            # the kernels the steps launch, built together (one nvcc each)
+            # rather than one after another at their first launches
+            build.build(["paged_attention"]
+                        + (["mixed_gemm"] if cfg.dtype == "bfloat16" else [])
+                        + (["mamba_scan"] if cfg.has_mamba else []))
 
     def _refuse_state(self, what: str) -> None:
         if self.ssm_h is not None:

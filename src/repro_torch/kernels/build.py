@@ -41,6 +41,8 @@ ENTRY_POINTS = {
                             [_P] * 13 + [_I] * 5 + [_L] * 15 + [_I] * 4 + [_F, _P]),
     "mamba_scan": ("mamba1_scan_launch",
                    [_P] * 10 + [_I] * 5 + [_L] * 8 + [_I, _P]),
+    "mixed_gemm": ("mixed_gemm_launch",
+                   [_P, _L, _P, _P, _P, _L, _L, _P, _P, _L] + [_P] * 3 + [_I] * 7 + [_P]),
 }
 
 _ARG_ERRORS = {-1: "unsupported dtype combination", -2: "unsupported head_dim",

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the attention kernels and the Mamba scans.
+"""Plain PyTorch versions of the attention kernels, the Mamba scans and
+the f32 x bf16 product.
 
 They compute what the CUDA kernels compute, in the most direct way, and
 are the numerically trusted side of every comparison: the CPU tests hold
@@ -379,6 +380,32 @@ def chunk_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
         mask = mask & (kpos > qpos - window)
     out = _attend(qg, k_all, v_all, mask[:, None, None])
     return out.reshape(b, c, nq, hd).to(q.dtype)
+
+
+# ----------------------------------------------------------------------------
+# f32 activations x bf16 weights
+# ----------------------------------------------------------------------------
+
+def mixed_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) f32 @ w (K, N) bf16 in f32: the weight widened, as
+    ``jnp`` promotes it.  Returns (..., N) f32."""
+    return torch.matmul(x, w.float())
+
+
+def mixed_grouped(x: torch.Tensor, ws, a_rows: torch.Tensor | None, offsets: torch.Tensor,
+                  counts: torch.Tensor, capacity: int, rows: int) -> list:
+    """For each weight w (G, K, N) bf16 of ``ws``, y (rows, N) f32 whose
+    row j, for the first min(counts[e], capacity) rows j from offsets[e]
+    of each group e, is x[a_rows[j]] @ w[e] (x[j] when ``a_rows`` is
+    None) in f32; the other rows are zeros."""
+    outs = [torch.zeros((rows, w.shape[-1]), dtype=torch.float32, device=x.device) for w in ws]
+    groups = ws[0].shape[0]
+    for e, (o, c) in enumerate(zip(offsets[:groups].tolist(), counts[:groups].tolist())):
+        j = torch.arange(o, o + min(c, capacity), device=x.device)
+        src = x[a_rows[j].long() if a_rows is not None else j].float()
+        for y, w in zip(outs, ws):
+            y[j] = src @ w[e].float()
+    return outs
 
 
 # ----------------------------------------------------------------------------

@@ -10,7 +10,11 @@ Layer parameters stack over a leading ``num_layers`` axis (see
 Matrix products follow JAX's type promotion, which ``torch.matmul`` does
 not do by itself: an f32 activation against bf16 weights computes in
 f32 (chunked prefill), a bf16 activation against bf16 weights in bf16
-(batched decode).
+(batched decode).  On the card the f32 x bf16 product reads the bf16
+weight in place (``kernels/mixed_gemm.py``) instead of widening it to an
+f32 copy; each such product notes the weight bytes it takes on the
+running step phase (``core/metrics.py: note``), as ``mixed_weight_bytes``
+through the kernel or ``widened_weight_bytes`` through the widening.
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.core import metrics
+from repro_torch.kernels import mixed_gemm, ops
 
 
 def _dense_init(gen: torch.Generator, shape, in_axis_size: int,
@@ -65,8 +70,20 @@ def torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+def note_weight_bytes(mixed: bool, nbytes: int) -> None:
+    """Note on the running step phase the bytes of bf16 weights an f32
+    product took, read in place (``mixed``) or widened."""
+    metrics.note(**{"mixed_weight_bytes" if mixed else "widened_weight_bytes": nbytes})
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` in the promoted dtype of the two, as ``jnp`` computes it."""
+    """``x @ w`` in the promoted dtype of the two, as ``jnp`` computes it;
+    f32 against bf16 through ``mixed_gemm`` where it ``takes`` them."""
+    if x.dtype == torch.float32 and w.dtype == torch.bfloat16:
+        mixed = w.dim() == 2 and mixed_gemm.takes(x, w)
+        note_weight_bytes(mixed, 2 * w.numel())
+        if mixed:
+            return mixed_gemm.matmul(x, w)
     dt = torch.promote_types(x.dtype, w.dtype)
     return torch.matmul(x.to(dt), w.to(dt))
 

@@ -3,7 +3,10 @@ sort-based dispatch (no (T, E, C) one-hot blowup), and the Switch-style
 load-balance aux loss.
 
 The formulation of the JAX package: gathers and scatters into a static
-(E, C, d) buffer and three batched expert products over it.  Which
+(E, C, d) buffer and three batched expert products over it.  On the
+card, for f32 activations against bf16 experts (the prefill), the kept
+pairs go instead through the grouped product of ``kernels/mixed_gemm.py``,
+each expert over its own pairs only; which pairs are kept is the same.  Which
 (token, expert) pairs overflow an expert's C slots and are dropped
 depends on order, so the port keeps the JAX order exactly: a stable
 argsort of the flat expert ids (``jnp.argsort`` is stable), and top-k
@@ -24,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import _dense_init, matmul, torch_dtype
+from repro_torch.kernels import mixed_gemm
+from repro_torch.models.layers import _dense_init, matmul, note_weight_bytes, torch_dtype
 
 #: when a 0-d int64 tensor, every ``moe_forward`` adds the (token, expert)
 #: pairs it dropped into it, on the device and without a sync (a
@@ -105,26 +109,46 @@ def experts(xf: torch.Tensor, topw: torch.Tensor, topi: torch.Tensor, wg: torch.
     if drop_counter is not None:
         drop_counter.add_((mine & ~keep).sum())
 
-    # scatter into the (E_loc, C, d) compute buffer: a dropped pair's row
-    # goes to one spare row past the buffer, which nothing reads (the JAX
-    # package writes it out of bounds with mode="drop")
-    row = torch.where(keep, e_sorted * C + pos_in_e, E_loc * C)
-    buf = xf.new_zeros((E_loc * C + 1, d))
-    buf[row] = xf[tok]
-    buf = buf[:E_loc * C].view(E_loc, C, d)
+    # ---- expert compute: each kept pair's output, in sort order ---------
+    if all(mixed_gemm.takes(xf, w) for w in (wg, wu, wd)):
+        note_weight_bytes(True, 2 * (wg.numel() + wu.numel() + wd.numel()))
+        y_sorted = _grouped_pairs(xf, tok, offsets, counts, wg, wu, wd, C)
+    else:                                                  # its products note what they widen
+        y_sorted = _buffer_pairs(xf, tok, e_sorted, pos_in_e, keep, wg, wu, wd, C)
 
-    # ---- expert compute (batched products over the expert axis) --------
-    h = F.silu(matmul(buf, wg)) * matmul(buf, wu)
-    y_buf = matmul(h, wd).reshape(E_loc * C, d)            # (E_loc*C, d)
-
-    # ---- gather back + combine ----------------------------------------
-    y_sorted = y_buf[torch.clamp(e_sorted, max=E_loc - 1) * C
-                     + torch.clamp(pos_in_e, max=C - 1)]
+    # ---- combine -------------------------------------------------------
     y_sorted = torch.where(keep[:, None], y_sorted, y_sorted.new_zeros(()))
     y_flat = xf.new_zeros((T * k, d)).index_put((sort_idx,), y_sorted.to(xf.dtype))
     y = y_flat.reshape(T, k, d) * topw[..., None].to(xf.dtype)
     y = y.float().sum(dim=1) if partial else y.sum(dim=1)
     return y, counts[:E_loc]
+
+
+def _buffer_pairs(xf, tok, e_sorted, pos_in_e, keep, wg, wu, wd, C: int) -> torch.Tensor:
+    """The pairs' outputs (T*k, d) in sort order through the (E_loc, C, d)
+    capacity buffer and three batched products over the expert axis (the
+    JAX package's formulation): every expert computes all C rows."""
+    E_loc, d = wg.shape[0], xf.shape[1]
+    # a dropped pair's row goes to one spare row past the buffer, which
+    # nothing reads (the JAX package writes it out of bounds with mode="drop")
+    row = torch.where(keep, e_sorted * C + pos_in_e, E_loc * C)
+    buf = xf.new_zeros((E_loc * C + 1, d))
+    buf[row] = xf[tok]
+    buf = buf[:E_loc * C].view(E_loc, C, d)
+    h = F.silu(matmul(buf, wg)) * matmul(buf, wu)
+    y_buf = matmul(h, wd).reshape(E_loc * C, d)            # (E_loc*C, d)
+    return y_buf[torch.clamp(e_sorted, max=E_loc - 1) * C
+                 + torch.clamp(pos_in_e, max=C - 1)]
+
+
+def _grouped_pairs(xf, tok, offsets, counts, wg, wu, wd, C: int) -> torch.Tensor:
+    """The pairs' outputs (T*k, d) in sort order through the grouped
+    f32 x bf16 product (``kernels/mixed_gemm.py``): each held expert
+    computes its first min(count, C) pairs, the kept ones, and an expert
+    without pairs reads none of its weights.  Rows of pairs not kept hold
+    anything: the caller masks them."""
+    g, u = mixed_gemm.grouped(xf, (wg, wu), tok, offsets, counts, C)
+    return mixed_gemm.grouped(F.silu(g) * u, (wd,), None, offsets, counts, C)[0]
 
 
 def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, routes: list | None = None):

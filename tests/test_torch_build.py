@@ -1,5 +1,7 @@
 """The kernel build helper and launch counters, on the CPU (no nvcc, no
 card): what can be checked without compiling."""
+import ctypes
+import re
 import sys
 import threading
 
@@ -55,3 +57,23 @@ def test_launch_counter_loses_no_update_under_threads():
     assert counter.value == n_threads * n_adds
     counter.reset()
     assert counter.value == 0
+
+
+# the ctypes type of each C parameter type of an entry point
+_C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "int64_t": ctypes.c_int64,
+            "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize("name", sorted(build.ENTRY_POINTS))
+def test_argtypes_follow_the_entry_points_c_signature(name):
+    """ctypes passes each argument as ``argtypes`` says, whatever the C side
+    declares: a pointer or int64 read as a 32-bit int is cut.  Every
+    entry point's argtypes must be its C parameters' types, in order."""
+    fn, argtypes = build.ENTRY_POINTS[name]
+    src = (build.CSRC / f"{name}.cu").read_text()
+    sig = re.search(r'extern "C" int ' + fn + r"\((.*?)\)\s*\{", src, re.S)
+    assert sig, f"{fn} not found in {name}.cu"
+    # a pointer's pointee type is of no matter to ctypes; other parameters
+    # are "<type> <name>"
+    types = ["void*" if "*" in p else p.split()[-2] for p in sig.group(1).split(",")]
+    assert [_C_TYPES[t] for t in types] == argtypes

@@ -19,6 +19,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba_scan as ms
+from repro_torch.kernels import mixed_gemm as mg
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as pa
 
@@ -1015,3 +1016,189 @@ def test_hybrid_capture_holds_each_layers_kernel_at_the_published_depth(cuda):
     graph.decode(*steps[1])
     torch.cuda.synchronize()
     assert (pa.launches.value - n, ms.launches.value - n_scan) == (4, 28)
+
+
+# ---------------------------------------------------------------------------
+# f32 activations x bf16 weights (kernels/mixed_gemm.py): the prefill's
+# products, the weights read in place
+# ---------------------------------------------------------------------------
+
+# The kernel sums exact products of the activations' three bf16 parts in
+# f32, in another order than cuBLAS's f32 SGEMM (the plain version, TF32
+# off): the tensor cores sum each stage of 32 K-rows, the stages are added
+# in f32 rounded to nearest.  With weights drawn as the models draw them
+# (over sqrt(K)) |y| is about 1, and both sides round about sqrt(K / 32)
+# times at 6e-8 of the running sum: the largest error is held to 1e-5 of
+# the largest |y|.
+MIXED_TOL = 1e-5
+
+# (K, N) of every prefill product of the two configurations, and edges
+MIXED_SHAPES = {
+    "jamba in_proj": (4096, 16384), "jamba x_proj": (8192, 288), "jamba dt_proj": (256, 8192),
+    "jamba out_proj": (8192, 4096), "jamba q/o": (4096, 4096), "jamba k/v": (4096, 1024),
+    "jamba mlp up": (4096, 14336), "jamba mlp down": (14336, 4096), "jamba head": (4096, 65536),
+    "qwen q": (2048, 4096), "qwen k/v": (2048, 512), "qwen o": (4096, 2048),
+    "qwen head": (2048, 151936), "K and N ragged": (100, 40), "N one tile and 8": (512, 264)}
+
+
+def _mixed_inputs(gen, m, k, n):
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = (torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5).to(torch.bfloat16)
+    return x, w
+
+
+def _assert_mixed_close(got, want, tol=MIXED_TOL):
+    assert got.dtype == torch.float32 and bool(got.isfinite().all())
+    err = float((got - want).abs().max())
+    assert err <= tol * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("name", sorted(MIXED_SHAPES))
+@pytest.mark.parametrize("m", [1, 19, 64])
+def test_mixed_gemm_matches_the_promoted_product(cuda, name, m):
+    assert not torch.backends.cuda.matmul.allow_tf32
+    k, n = MIXED_SHAPES[name]
+    x, w = _mixed_inputs(cuda, m, k, n)
+    launched = mg.launches.value
+    got = mg.matmul(x, w)
+    torch.cuda.synchronize()
+    assert mg.launches.value == launched + 1
+    _assert_mixed_close(got, ref.mixed_matmul(x, w))
+
+
+@pytest.mark.parametrize("m,k,n", [(65, 2048, 4096), (200, 8192, 288), (1000, 2560, 2048)])
+def test_mixed_gemm_takes_rows_past_one_block(cuda, m, k, n):
+    """A whole prompt (the monolithic baseline's, a state runner's)."""
+    x, w = _mixed_inputs(cuda, m, k, n)
+    _assert_mixed_close(mg.matmul(x, w), ref.mixed_matmul(x, w))
+
+
+@pytest.mark.parametrize("kind", ["column slice", "offset", "3-d"])
+def test_mixed_gemm_reads_strided_activations(cuda, kind):
+    """A column slice with a 16-byte aligned base is read in place; a base
+    one element in is copied first; leading dimensions are flattened."""
+    k, n = 1024, 512
+    _, w = _mixed_inputs(cuda, 1, k, n)
+    if kind == "column slice":
+        x = torch.randn((19, k + 8), generator=cuda, device="cuda")[:, 4:4 + k]
+    elif kind == "offset":
+        x = torch.randn(19 * k + 1, generator=cuda, device="cuda")[1:].view(19, k)
+    else:
+        x = torch.randn((1, 19, k), generator=cuda, device="cuda")
+    got = mg.matmul(x, w)
+    assert got.shape == (*x.shape[:-1], n)
+    _assert_mixed_close(got, ref.mixed_matmul(x, w))
+
+
+def test_mixed_gemm_refuses_what_it_does_not_take(cuda):
+    x, w = _mixed_inputs(cuda, 4, 256, 96)
+    launched = mg.launches.value
+    with pytest.raises(ValueError, match="invalid shape"):
+        mg.matmul(x, w[:, :92])                        # N not a multiple of 8
+    with pytest.raises(ValueError, match="against"):
+        mg.matmul(x[:, :128], w)
+    assert mg.launches.value == launched
+    assert not mg.takes(x, w.float()) and not mg.takes(x.bfloat16(), w)
+    assert not mg.takes(x.requires_grad_(True), w) and mg.takes(x.detach(), w)
+
+
+def _routed(gen, T, d, f, E, width, k):
+    """Tokens routed top-k over ``width`` experts (the first E held), none
+    to experts 0 and 3; the held experts' weights as the models draw them."""
+    xf = torch.randn((T, d), generator=gen, device="cuda")
+    scores = torch.rand((T, width), generator=gen, device="cuda")
+    scores[:, [0, 3]] = -1.0
+    topi = torch.argsort(scores, dim=1, descending=True)[:, :k]
+    topw = torch.softmax(torch.rand((T, k), generator=gen, device="cuda"), -1)
+    ws = [(torch.randn(shape, generator=gen, device="cuda") / shape[1] ** 0.5)
+          .to(torch.bfloat16) for shape in ((E, d, f), (E, d, f), (E, f, d))]
+    return xf, topw, topi, ws
+
+
+@pytest.mark.parametrize("shape", ["qwen", "jamba"])
+@pytest.mark.parametrize("dropless", [True, False])
+def test_grouped_experts_match_the_capacity_buffer(cuda, monkeypatch, shape, dropless):
+    """The MoE layer's experts through the grouped kernel (two launches)
+    against the capacity buffer of widened weights: Qwen's 128 experts of
+    2048 x 768 top-8, Jamba's 8 held of 16 at 4096 x 14336 top-2, two
+    experts without pairs; dropless, or at half the mean load, which
+    drops pairs: the same y, counts and dropped pairs."""
+    from repro_torch.models import moe
+    T, d, f, E, width, k = {"qwen": (64, 2048, 768, 128, 128, 8),
+                            "jamba": (64, 4096, 14336, 8, 16, 2)}[shape]
+    xf, topw, topi, (wg, wu, wd) = _routed(cuda, T, d, f, E, width, k)
+    C = T if dropless else T * k // width // 2
+    runs = []
+    for grouped in (True, False):
+        if not grouped:
+            monkeypatch.setattr(mg, "takes", lambda x, w: False)
+        monkeypatch.setattr(moe, "drop_counter", torch.zeros((), dtype=torch.long,
+                                                             device="cuda"))
+        launched = mg.launches.value
+        y, counts = moe.experts(xf, topw, topi, wg, wu, wd, 0, C)
+        torch.cuda.synchronize()
+        assert mg.launches.value - launched == (2 if grouped else 0)
+        runs.append((y, counts, int(moe.drop_counter)))
+    (y1, c1, d1), (y0, c0, d0) = runs
+    assert torch.equal(c0, c1) and int(c0[0]) == int(c0[3]) == 0
+    assert d0 == d1 == int((c0 - C).clamp(min=0).sum()) and (d0 > 0) == (not dropless)
+    _assert_mixed_close(y1, y0)
+
+
+def _two_layers(which):
+    """Two layers at published widths: Qwen3-30B-A3B's (attention and MoE),
+    or Jamba2-Mini's kinds (Mamba1 and dense MLP, then attention and MoE,
+    8 experts held of 16); dropless."""
+    from repro_torch.configs import jamba2_mini, qwen3_moe_30b_a3b
+    if which == "qwen":
+        return qwen3_moe_30b_a3b.CONFIG.replace(num_layers=2, capacity_factor=1e9)
+    return jamba2_mini.CONFIG.replace(num_layers=2, attn_layer_period=2, attn_layer_offset=1,
+                                      capacity_factor=1e9)
+
+
+@pytest.mark.parametrize("which", ["qwen", "jamba"])
+def test_a_prefill_chunk_through_the_kernel_matches_the_widening(cuda, monkeypatch, which):
+    """A 50-token chunk (of 64 rows) through the kernel, every product
+    once (Qwen: q, k, v, o and the grouped experts' two launches a layer,
+    and the head; Jamba adds in_proj, x_proj, dt_proj and out_proj, and
+    the dense MLP's three), against the widening on the same weights; then
+    the decode graph, which holds no launch of it.  Logits and hidden
+    states held to 1e-3 of their largest: the two paths' f32 sums differ
+    in their last bits, and the chunk's K and V are stored in the bf16 page
+    pool and read back from it, where a last-bit difference can move a
+    value by one bf16 step (2**-8 of it); the kernel's own products are
+    held to 1e-5 above."""
+    import numpy as np
+
+    from repro_torch.engine.kv_cache import PagedKVConfig
+    from repro_torch.engine.runner import PagedRunner
+    from repro_torch.models import transformer as T
+    cfg = _two_layers(which)
+    params = T.init_params(cfg, cuda)
+    kv = PagedKVConfig(num_pages=GRAPH_B * GRAPH_PP + 8, page_size=GRAPH_PAGE,
+                       max_pages_per_seq=GRAPH_PP)
+    embeds = torch.randn((1, 64, cfg.d_model), generator=cuda, device="cuda")
+    table = np.arange(1, GRAPH_PP + 1, dtype=np.int32)
+    products = {"A": 4, "M": 4, "moe": 2, "mlp": 3}
+    want_launches = 1 + sum(products[kind] + products["moe" if cfg.is_moe_layer(i) else "mlp"]
+                            for i, kind in enumerate(cfg.layer_layout))
+    out = []
+    for through_kernel in (True, False):
+        if not through_kernel:
+            monkeypatch.setattr(mg, "takes", lambda x, w: False)
+        runner = PagedRunner(cfg, params, kv, max_batch=GRAPH_B)
+        launched = mg.launches.value
+        out.append(runner.prefill_chunk(embeds, table, 0, 50, slot=1))
+        torch.cuda.synchronize()
+        assert mg.launches.value - launched == (want_launches if through_kernel else 0)
+    for got, want in zip(*out):
+        _assert_mixed_close(got, want, tol=1e-3)
+    monkeypatch.undo()
+    runner = PagedRunner(cfg, params, kv, max_batch=GRAPH_B)
+    launched, paged = mg.launches.value, pa.launches.value
+    for step in _decode_steps(cfg, cuda, n=2, seed=5):
+        runner.decode(*step)
+    torch.cuda.synchronize()
+    n_attn = cfg.layer_layout.count("A")
+    assert mg.launches.value == launched and runner._graph.launches == n_attn
+    assert pa.launches.value - paged == 2 * n_attn

@@ -96,10 +96,11 @@ def test_no_forbidden_import_statement(path):
 
 
 # what the port has beside the JAX package's modules: the weight converter,
-# the device rule, the connector's tree codec, the kernels' build and the
-# configuration of a model the JAX package does not lay out (Jamba)
+# the device rule, the connector's tree codec, the kernels' build, the
+# configuration of a model the JAX package does not lay out (Jamba) and the
+# f32 x bf16 product's kernel, whose product XLA computes in the JAX package
 PORT_EXTRAS = {"convert.py", "device.py", "connector/tree.py", "kernels/build.py",
-               "configs/jamba2_mini.py"}
+               "configs/jamba2_mini.py", "kernels/mixed_gemm.py"}
 
 
 def _py_files(root: pathlib.Path) -> set:
