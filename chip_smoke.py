@@ -2528,6 +2528,7 @@ def decode_step_check(torch, runner, prompts, what: str):
     numbers and a function that runs the step again (for a profile)."""
     import numpy as np
 
+    from repro_torch.engine.runner import embed
     from repro_torch.kernels import ops
     B = len(prompts)
     lens = [len(p) for p in prompts]
@@ -2540,10 +2541,10 @@ def decode_step_check(torch, runner, prompts, what: str):
         n = lens[s]
         for c0 in range(0, n - 1, 512):
             c1 = min(c0 + 512, n - 1)
-            emb = runner.embed(prompts[s][c0:c1])
+            emb = embed(runner.params, prompts[s][c0:c1])
             runner.prefill_chunk(torch.as_tensor(emb, device=runner.device)[None],
                                  tables[s], c0, c1 - c0)
-    last = np.stack([runner.embed(prompts[s][-1:])[0] for s in range(B)])
+    last = np.stack([embed(runner.params, prompts[s][-1:])[0] for s in range(B)])
     embeds = torch.as_tensor(last, device=runner.device).to(torch.bfloat16)[:, None]
     active = np.ones(B, bool)
     logits = {}
@@ -3016,9 +3017,9 @@ def serve_state_arch(torch, arch, *, n_requests, max_new, lens_range, max_batch,
     first_token = {}
     prefill, decode, sample = runner.prefill, runner.decode, eng._sample
 
-    def timed_prefill(embeds, slot):
+    def timed_prefill(embeds, slot, *rest):
         t = time.perf_counter()
-        out = prefill(embeds, slot)
+        out = prefill(embeds, slot, *rest)
         torch.cuda.synchronize()
         stats["prefill_s"] += time.perf_counter() - t
         stats["prefill_tokens"] += int(embeds.shape[1])
@@ -3094,7 +3095,7 @@ def phase_ssm_full_width(torch):
     """Falcon-Mamba-7B at its published width and depth (64 layers)."""
     import numpy as np
 
-    from repro_torch.engine.runner import _prefill_from_embeds
+    from repro_torch.engine.runner import _prefill_from_embeds, embed
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import ops
 
@@ -3107,7 +3108,7 @@ def phase_ssm_full_width(torch):
     # the kernel against the plain scan: one prompt of 256 tokens, prefilled
     # in f32 with each backend; last-position logits and the final state
     prompt = reqs[0].inputs["tokens"][:256]
-    emb = torch.as_tensor(runner.embed(prompt), device="cuda")[None]
+    emb = torch.as_tensor(embed(runner.params, prompt), device="cuda")[None]
     res = {}
     with torch.no_grad():
         for backend in ("cuda", "ref"):
@@ -3127,7 +3128,7 @@ def phase_ssm_full_width(torch):
     # one batched 8-row decode step, kernel vs plain scan, from the same state
     B = runner.max_batch
     toks = np.array([int(r.outputs[arch][0]["tokens"][-1]) for r in reqs[:B]])
-    embeds = torch.as_tensor(runner.embed(toks), device="cuda").to(torch.bfloat16)[:, None]
+    embeds = torch.as_tensor(embed(runner.params, toks), device="cuda").to(torch.bfloat16)[:, None]
     positions = np.array([len(r.inputs["tokens"]) + 31 for r in reqs[:B]], np.int32)
     active = np.ones(B, bool)
     saved = {k: v.clone() for k, v in runner.cache.items()}
@@ -3169,7 +3170,7 @@ def phase_hybrid(torch):
     once through the step-by-step ``ref.mamba2_scan`` (the JAX package's
     scan), f32 each: logits and final SSM state held to each other at
     ``PREFILL_LOGIT_RTOL`` of their scale, each prefill timed."""
-    from repro_torch.engine.runner import _prefill_from_embeds
+    from repro_torch.engine.runner import _prefill_from_embeds, embed
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     out, ctx = serve_state_arch(torch, "zamba2_2_7b", n_requests=4, max_new=16,
@@ -3178,7 +3179,7 @@ def phase_hybrid(torch):
     runner, reqs, cfg = ctx["runner"], ctx["reqs"], ctx["cfg"]
     out["phase"] = "hybrid"
     prompt = max((r.inputs["tokens"] for r in reqs), key=len)
-    emb = torch.as_tensor(runner.embed(prompt), device="cuda")[None]
+    emb = torch.as_tensor(embed(runner.params, prompt), device="cuda")[None]
     res, chunk = {}, ops.MAMBA2_CHUNK
     ops.set_backend("cuda")
     try:
@@ -3215,10 +3216,10 @@ def profiled_prefill(torch, runner, cfg, reqs):
     """The longest served prompt's whole-prompt prefill (backend "cuda",
     after the served run has warmed everything up) under the profiler:
     the prefill's device ms and the port's kernels' share of it."""
-    from repro_torch.engine.runner import _prefill_from_embeds
+    from repro_torch.engine.runner import _prefill_from_embeds, embed
     from repro_torch.kernels import ops
     prompt = max((r.inputs["tokens"] for r in reqs), key=len)
-    emb = torch.as_tensor(runner.embed(prompt), device="cuda")[None]
+    emb = torch.as_tensor(embed(runner.params, prompt), device="cuda")[None]
     ops.set_backend("cuda")
     with torch.no_grad():
         _, prof = device_profile(

@@ -32,7 +32,7 @@ from repro_torch.device import engine_stream, on_stream
 from repro_torch.engine.kv_cache import (PagedKVConfig, embed_prefix_keys,
                                    hash_embed_blocks, hash_token_blocks,
                                    token_prefix_keys)
-from repro_torch.engine.runner import PagedRunner, StateRunner, to_host
+from repro_torch.engine.runner import embed, make_runner, to_host
 from repro_torch.engine.sampling import SamplingParams, sample_tokens
 from repro_torch.engine.scheduler import Scheduler
 
@@ -56,7 +56,6 @@ class _ReqRuntime:
     data: Dict[str, Any] = field(default_factory=dict)
     tokens: List[int] = field(default_factory=list)
     hiddens: List[np.ndarray] = field(default_factory=list)
-    last_logits: Optional[torch.Tensor] = None
     streamed: int = 0
     chunk_index: int = 0
     kv_seed: Optional[tuple] = None              # (k, v, kv_dtype, prompt_len) — PD
@@ -80,37 +79,26 @@ class AREngine:
         self.stream_chunk = stream_chunk
         self.collect_hidden = collect_hidden
         self.default_sampling = default_sampling
-        self.emit_kv = emit_kv   # prefill stage: ship prompt KV on finish
+        self.runner = r = make_runner(cfg, params, self.kv, max_batch, chunk_size)
+        if spec_ngram or emit_kv:
+            r._refuse_state("speculative verification or a PD KV hop")
+        # sharing, rewinding or shipping pages needs them to hold a request's
+        # whole state (the serving CLI asks every AR stage for prefix caching)
+        self.enable_prefix_cache = enable_prefix_cache and r.pages_carry_state
+        self.emit_kv = emit_kv and r.pages_carry_state   # prefill stage: ship prompt KV on finish
         # n-gram speculative decoding (greedy only): (match_len m, draft_k).
         # Drafts come from prompt-lookup (most recent m-gram match in the
         # context); verification is one chunk forward; rejected drafts'
         # page writes are masked by seq_lens and overwritten later, so
         # rollback is free.
-        self.spec_ngram = spec_ngram
+        self.spec_ngram = spec_ngram if r.pages_carry_state else None
         self.spec_stats = {"proposed": 0, "accepted": 0, "steps": 0}
-        self._paged = cfg.arch_type not in ("ssm", "hybrid")
-        if (spec_ngram or emit_kv) and self._paged and cfg.has_mamba:
-            # a page shipped or rewound carries no Mamba state
-            raise ValueError(f"{cfg.name} has Mamba layers, whose state speculative "
-                             f"verification and PD KV hops cannot carry")
-        # prefix caching shares pages, and no Mamba layer's state is in them:
-        # off for every model with Mamba layers (the serving CLI asks for it
-        # on every AR stage)
-        self.enable_prefix_cache = enable_prefix_cache and not cfg.has_mamba
-        self.scheduler = Scheduler(self.kv, max_batch, token_budget,
-                                   chunk_size,
+        if r.whole_prompts:     # a step's budget holds every slot's whole prompt
+            token_budget = max(token_budget, max_batch * r.chunk_size)
+        self.scheduler = Scheduler(self.kv, max_batch, token_budget, r.chunk_size,
                                    enable_prefix_cache=self.enable_prefix_cache,
                                    prefix_index=prefix_index)
-        if not self._paged:
-            self.runner: Any = StateRunner(cfg, params, self.kv, max_batch)
-            # SSM prefill is one scan: admit whole prompts as one chunk, and
-            # budget a step for every slot's whole prompt, so that no prompt
-            # is split (the JAX package would restart the state of a split one)
-            self.scheduler.chunk_size = self.kv.max_seq
-            self.scheduler.token_budget = max(token_budget, max_batch * self.kv.max_seq)
-        else:
-            self.runner = PagedRunner(cfg, params, self.kv, max_batch)
-        self.device = self.runner.device
+        self.device = r.device
         # after the runner: the stream first waits for the pools' and the
         # weights' initialisation, queued on the creating thread's stream
         self.stream = engine_stream(self.device)
@@ -148,7 +136,7 @@ class AREngine:
             tokens = np.asarray(inputs["tokens"], np.int32)
             rt.prompt_tokens = [int(t) for t in tokens]
             with metrics.reads_into(self.step_totals.enqueue_reads):
-                pe = np.asarray(self.runner.embed(tokens))
+                pe = embed(self.runner.params, tokens)
         if self.preprocess is not None:
             extra = self.preprocess(data, {"phase": "prefill",
                                            "prompt_len": pe.shape[0]})
@@ -173,7 +161,7 @@ class AREngine:
         prepends).  Hashes cover full pages (tree edges); sub-keys cover
         every position including the partial tail block, enabling
         partial-block radix hits."""
-        if not (self.enable_prefix_cache and self._paged):
+        if not self.enable_prefix_cache:
             return None, None
         if rt.prompt_tokens is not None and self.preprocess is None:
             return (hash_token_blocks(rt.prompt_tokens, self.kv.page_size),
@@ -188,8 +176,7 @@ class AREngine:
         without per-request preprocess are hintable (embeds are hashed
         post-preprocess, which the router cannot reproduce).  Returns None
         when no stable hint exists."""
-        if not (self.enable_prefix_cache and self._paged
-                and self.preprocess is None and inputs is not None
+        if not (self.enable_prefix_cache and self.preprocess is None and inputs is not None
                 and "kv_seed" not in inputs and "prompt_embeds" not in inputs
                 and "tokens" in inputs):
             return None
@@ -202,7 +189,7 @@ class AREngine:
         blocks score page_size tokens each, plus the partial-block match
         at the divergence.  Read-only, cross-thread safe (the router
         probes every candidate replica with it)."""
-        if not (self.enable_prefix_cache and self._paged) or hint is None:
+        if not self.enable_prefix_cache or hint is None:
             return 0
         if isinstance(hint, tuple):
             hashes, keys = hint
@@ -229,25 +216,14 @@ class AREngine:
         return int(metrics.to_cpu(sample_tokens(logits[None], sp.temperature,
                                                 sp.top_k, self._gen)[0]))
 
-    def _decode_embed_row(self, req_id: int) -> np.ndarray:
-        rt = self._rt[req_id]
-        tok = rt.tokens[-1]
-        e = np.asarray(self.runner.embed(np.array([tok], np.int32)))[0]
-        if self.preprocess is not None:
-            extra = self.preprocess(
-                rt.data, {"phase": "decode", "step": len(rt.tokens) - 1})
-            if extra and "extra_embed" in extra:
-                e = e + np.asarray(extra["extra_embed"], e.dtype)
-        return e
-
     def _release(self, req_id: int) -> None:
         """Release a finished request, first extending its block-hash chain
         over generated tokens (token stages without per-request decode
         hooks) so the whole context becomes matchable — a multi-turn
         follow-up that re-sends this conversation hits every page."""
         rt = self._rt.pop(req_id)
-        if self.enable_prefix_cache and self._paged \
-                and rt.prompt_tokens is not None and self.preprocess is None:
+        if self.enable_prefix_cache and rt.prompt_tokens is not None \
+                and self.preprocess is None:
             seq = self.scheduler.running[req_id]
             ctx = rt.prompt_tokens + rt.tokens
             self.scheduler.set_hashes(
@@ -260,7 +236,7 @@ class AREngine:
     def cached_prefix_pages(self) -> int:
         """Published pages in this replica's index (donor-selection
         score for warm scale-up)."""
-        if not (self.enable_prefix_cache and self._paged):
+        if not self.enable_prefix_cache:
             return 0
         return self.scheduler.allocator.indexed_pages
 
@@ -272,7 +248,7 @@ class AREngine:
         engine can keep serving concurrently — indexed pages are
         KV-complete and never written by running requests, and the pin
         prevents eviction/reallocation mid-copy."""
-        if not (self.enable_prefix_cache and self._paged):
+        if not self.enable_prefix_cache:
             return []
         alloc = self.scheduler.allocator
         pin, paths = alloc.snapshot_pin(max_pages)
@@ -297,7 +273,7 @@ class AREngine:
         somewhere to route from the first request on.  Chains sharing a
         prefix with already-seeded ones are deduplicated via lookup.
         Returns the number of pages seeded."""
-        if not (self.enable_prefix_cache and self._paged):
+        if not self.enable_prefix_cache:
             return 0
         alloc = self.scheduler.allocator
         page = self.kv.page_size
@@ -352,7 +328,7 @@ class AREngine:
                            and rt.hiddens else None),
                 "n_chunks": rt.chunk_index,
             }
-            if self.emit_kv and self._paged:
+            if self.emit_kv:
                 seq = self.scheduler.running[req_id]
                 bt = self.scheduler.tables.row(req_id)
                 k, v, kv_dtype = self.runner.extract_kv(bt, seq.pos)
@@ -378,7 +354,7 @@ class AREngine:
         bucket = max(8, 1 << (k).bit_length())
         draft = draft[:bucket - 1]
         toks = np.array([rt.tokens[-1]] + draft, np.int32)
-        emb = np.asarray(self.runner.embed(toks))
+        emb = embed(self.runner.params, toks)
         embp = np.pad(emb, ((0, bucket - emb.shape[0]), (0, 0)))
         bt = self.scheduler.tables.row(rid)
         logits, hidden = self.runner.prefill_chunk(
@@ -433,7 +409,7 @@ class AREngine:
             gen = np.array(rt.tokens[:-1], np.int32)
             if len(gen):
                 rt.prompt_embeds = np.concatenate(
-                    [rt.prompt_embeds, np.asarray(self.runner.embed(gen))], 0)
+                    [rt.prompt_embeds, embed(self.runner.params, gen)], 0)
         seeded = [rid for rid in plan.admitted
                   if rid in self._rt and self._rt[rid].kv_seed is not None]
         if plan.cow_pairs or seeded:
@@ -470,21 +446,9 @@ class AREngine:
             rt = self._rt[ch.req_id]
             seq = self.scheduler.running[ch.req_id]
             emb = rt.prompt_embeds[ch.start:ch.start + ch.length]
-            if self._paged:
-                # pad to the chunk bucket, as the JAX package does to keep
-                # its jit shapes few (the padding is computed but never written)
-                bucket = self.scheduler.chunk_size
-                pad = bucket - emb.shape[0] if emb.shape[0] < bucket else 0
-                embp = np.pad(emb, ((0, pad), (0, 0)))
-                bt = self.scheduler.tables.row(ch.req_id)
-                logits, hidden = self.runner.prefill_chunk(
-                    torch.as_tensor(embp, device=self.device)[None], bt, ch.start,
-                    ch.length, slot=seq.slot)
-                last_logits = logits[ch.length - 1]
-            else:
-                logits, hidden = self.runner.prefill(
-                    torch.as_tensor(emb, device=self.device)[None], seq.slot)
-                last_logits = logits[-1]
+            logits, hidden = self.runner.prefill(
+                torch.as_tensor(emb, device=self.device)[None], seq.slot,
+                self.scheduler.tables.row(ch.req_id), ch.start)
             self.scheduler.note_prefill(ch.req_id, ch.length)
             if not seq.in_prefill and seq.resumed:
                 # resumed after preemption: the next token was already
@@ -493,10 +457,10 @@ class AREngine:
                 continue
             if not seq.in_prefill:
                 # prompt complete: sample the first token from prefill logits
-                tok = self._sample(ch.req_id, last_logits)
+                tok = self._sample(ch.req_id, logits[-1])
                 rt.tokens.append(tok)
                 if self.collect_hidden and hidden is not None:
-                    rt.hiddens.append(to_host(hidden[ch.length - 1]))
+                    rt.hiddens.append(to_host(hidden[-1]))
                 finished = self.scheduler.note_sampled(ch.req_id, tok)
                 self._emit_progress(ch.req_id, events, finished)
                 if finished:
@@ -508,7 +472,7 @@ class AREngine:
                    and not self.scheduler.running[r].finished]
 
         # ---- speculative decode (n-gram draft + chunk verify) -----------
-        if self.spec_ngram and self._paged and self.preprocess is None:
+        if self.spec_ngram and self.preprocess is None:
             for rid in list(dec_ids):
                 if self._spec_decode_one(rid, events):
                     dec_ids.remove(rid)
@@ -516,24 +480,25 @@ class AREngine:
             tr.phase("engine.decode_inputs")
             tr.counts["rows"] = len(dec_ids)
             B = self.max_batch
-            d = self.cfg.d_model
-            embeds = np.zeros((B, 1, d), np.float32)
             positions = np.zeros((B,), np.int32)
             active = np.zeros((B,), bool)
             tables = np.zeros((B, self.kv.max_pages_per_seq), np.int32)
-            slot_of = {}
-            for rid in dec_ids:
-                seq = self.scheduler.running[rid]
-                s = seq.slot
-                slot_of[rid] = s
-                embeds[s, 0] = self._decode_embed_row(rid)
+            slot_of, last, extra = {}, [], {}
+            for i, rid in enumerate(dec_ids):
+                seq, rt = self.scheduler.running[rid], self._rt[rid]
+                s = slot_of[rid] = seq.slot
+                last.append(rt.tokens[-1])
                 positions[s] = seq.pos
                 active[s] = True
                 tables[s] = self.scheduler.tables.row(rid)
-            dt = getattr(torch, self.cfg.dtype)
-            embeds_t = torch.as_tensor(embeds, device=self.device).to(dt)
+                hook = self.preprocess and self.preprocess(
+                    rt.data, {"phase": "decode", "step": len(rt.tokens) - 1})
+                if hook and "extra_embed" in hook:
+                    extra[i] = hook["extra_embed"]
+            embeds = embed(self.runner.params, last, list(slot_of.values()), B, extra,
+                           getattr(torch, self.cfg.dtype))
             tr.phase("model.decode")
-            logits, hidden = self.runner.decode(embeds_t, tables, positions, active)
+            logits, hidden = self.runner.decode(embeds, tables, positions, active)
             tr.phase("engine.sample")
             hidden_np = (to_host(hidden) if self.collect_hidden and hidden is not None
                          else None)

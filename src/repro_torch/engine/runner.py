@@ -22,6 +22,10 @@ a dense KV cache per shared-attention site of the hybrid), through the
 model's ``forward_prefill``/``forward_decode``; every Mamba1 layer's
 scan is the CUDA kernel on the card.
 
+``make_runner`` chooses between them; the AR engine reads only what both
+state (``chunk_size``, ``whole_prompts``, ``pages_carry_state``) and call
+``prefill`` and ``decode``.
+
 The page pools and state caches are updated in place (the JAX package
 donates them to its jitted steps instead).  Writes go only to the
 positions a request owns: the JAX package routes the rest to page id
@@ -43,7 +47,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-import time
 
 import numpy as np
 import torch
@@ -85,18 +88,56 @@ def kv_from_host(a: np.ndarray, kv_dtype: str | None, device) -> torch.Tensor:
     return t.view(torch.bfloat16) if kv_dtype == "bfloat16" else t
 
 
+def make_runner(cfg: ModelConfig, params, kv: PagedKVConfig, max_batch: int,
+                chunk_size: int):
+    """``StateRunner`` for the ssm and hybrid families, ``PagedRunner``
+    for the attention families (Jamba's interleaved layers among them)."""
+    if cfg.arch_type in T._STATE_FAMILIES:
+        return StateRunner(cfg, params, kv, max_batch)
+    if cfg.arch_type in T._ATTN_FAMILIES:
+        return PagedRunner(cfg, params, kv, max_batch, chunk_size)
+    raise NotImplementedError(f"no runner serves the {cfg.arch_type!r} family")
+
+
+def embed(params, tokens, slots=None, batch: int = 0, extra=None, dtype=None):
+    """Without ``slots``: ``tokens``'s embeddings as a host f32 array (bf16
+    widens exactly).  With them: a decode step's (batch, 1, d) input in
+    ``dtype`` on the device, row ``slots[i]`` holding ``tokens[i]``'s
+    embedding plus ``extra[i]`` (an ``extra_embed``) in f32, every other
+    row zero (a MoE layer routes inactive rows too), read back by nothing."""
+    table, dev = params["embed"], params["embed"].device
+    if slots is None:
+        idx = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=dev)
+        return metrics.to_cpu(table[idx].float()).numpy()
+
+    def upload(a):      # to the card from pinned memory, without waiting
+        t = torch.from_numpy(a)
+        return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
+
+    n, extra = len(tokens), extra or {}
+    idx = upload(np.array([*tokens, *slots, *extra], np.int64))
+    rows = table[idx[:n]].float()
+    if extra:
+        rows[idx[2 * n:]] += upload(np.stack([np.asarray(e, np.float32)
+                                              for e in extra.values()]))
+    out = torch.zeros((batch, 1, table.shape[1]), dtype=torch.float32, device=dev)
+    out[idx[n:2 * n], 0] = rows
+    return out.to(dtype)
+
+
 class PagedRunner:
     """Paged-KV execution for attention architectures, and for interleaved
     attention and Mamba1 layers with a recurrent state per slot beside the
     pages (``max_batch`` slots: the decode batch's rows)."""
 
-    def __init__(self, cfg: ModelConfig, params, kv: PagedKVConfig, max_batch: int = 0):
-        if cfg.arch_type not in ("dense", "moe", "vlm", "audio"):
-            raise NotImplementedError(
-                f"PagedRunner serves attention families, not {cfg.arch_type!r}")
+    whole_prompts = False
+
+    def __init__(self, cfg: ModelConfig, params, kv: PagedKVConfig, max_batch: int = 0,
+                 chunk_size: int = 64):
         self.cfg = cfg
         self.params = params
         self.kv = kv
+        self.chunk_size = chunk_size
         self.device = params["lm_head"].device
         self.quant = cfg.kv_cache_dtype == "int8"
         # each layer's index into its kind's pools (KV pages, Mamba states)
@@ -117,6 +158,7 @@ class PagedRunner:
             n = cfg.layer_layout.count("M")
             self.ssm_h = h.new_zeros((n, *h.shape))
             self.ssm_conv = conv.new_zeros((n, *conv.shape))
+        self.pages_carry_state = self.ssm_h is None     # no Mamba state beside them
         self._layers = T.layer_views(cfg, params)
         self._window = cfg.sliding_window if cfg.attn_variant == "swa" else 0
         self._graph = None          # the decode step's _DecodeGraph, on a CUDA runner
@@ -128,16 +170,9 @@ class PagedRunner:
                         + (["mamba_scan"] if cfg.has_mamba else []))
 
     def _refuse_state(self, what: str) -> None:
-        if self.ssm_h is not None:
+        if not self.pages_carry_state:
             raise ValueError(f"{what} moves KV pages, which cannot carry the recurrent "
                              f"state of {self.cfg.name}'s Mamba layers")
-
-    # ---- embeds ---------------------------------------------------------
-    def embed(self, tokens: np.ndarray) -> np.ndarray:
-        """Token embeddings as a host f32 array (the gather runs where the
-        table lives; widening bf16 rows to f32 is exact)."""
-        idx = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=self.device)
-        return metrics.to_cpu(self.params["embed"][idx].float()).numpy()
 
     def _layer_pools(self, i: int):
         if self.quant:
@@ -161,6 +196,15 @@ class PagedRunner:
             vp[pid, slot] = v.to(vp.dtype)
 
     # ---- prefill chunk ---------------------------------------------------
+    def prefill(self, embeds, slot, block_table, start):
+        """``prefill_chunk`` of n = embeds.shape[1] rows padded to
+        ``chunk_size``, as the JAX engine pads them (the padding takes MoE
+        capacity but is never written); (logits, hidden) of the n rows."""
+        n = embeds.shape[1]
+        padded = torch.nn.functional.pad(embeds, (0, 0, 0, max(0, self.chunk_size - n)))
+        logits, hidden = self.prefill_chunk(padded, block_table, start, n, slot=slot)
+        return logits[:n], hidden[:n]
+
     @torch.no_grad()
     def prefill_chunk(self, embeds, block_table, start, valid_len, slot=None):
         """embeds: (1, C, d); block_table: (pp,); start, valid_len: ints;
@@ -324,10 +368,9 @@ class PagedRunner:
         if self.device.type == "cuda" and ops.get_backend() != "ref" and get_context() is None:
             return self._graph_decode(embeds, tables, positions, active)
         dev = self.device
-        logits, hidden, routed, host_s = self._decode_body(
+        logits, hidden, routed = self._decode_body(
             embeds.to(dev), torch.as_tensor(tables, device=dev),
             torch.as_tensor(positions, device=dev), torch.as_tensor(active, device=dev))
-        metrics.note(**host_s)
         if routed is not None:
             metrics.keep(routed_experts=routed)
         return logits, hidden
@@ -344,9 +387,7 @@ class PagedRunner:
         and drops them).  A Mamba layer's state is written back for the
         active rows only: an inactive row's slot may hold a prompt that is
         still being prefilled, chunk by chunk.  Returns (logits (B, V),
-        hidden (B, d), ``_routed_experts`` of the MoE layers' routes, the
-        host seconds of the layers' mixer and feed-forward halves,
-        enqueueing their kernels)."""
+        hidden (B, d), ``_routed_experts`` of the MoE layers' routes)."""
         cfg = self.cfg
         page = self.kv.page_size
         live = active.bool()
@@ -359,8 +400,6 @@ class PagedRunner:
         slot = wpos % page
         pos_col = pos[:, None]                                  # (B, 1)
         routes = [] if cfg.is_moe else None
-        attn_s = ffn_s = 0.0
-        t_ffn = time.perf_counter()
         for i, lp in enumerate(self._layers):
             hn = L.rmsnorm(lp["ln1"], h, cfg.rmsnorm_eps)
             j = self._pool[i]
@@ -377,15 +416,10 @@ class PagedRunner:
                                         window=self._window, k_scale_pages=ksp,
                                         v_scale_pages=vsp)
                 h = h + L.unproject(o.to(h.dtype), lp["attn"]["wo"])[:, None]
-            t_attn = time.perf_counter()
-            attn_s += t_attn - t_ffn
             hn = L.rmsnorm(lp["ln2"], h, cfg.rmsnorm_eps)
             h = h + L.mlp_or_moe(cfg, lp, hn, routes)
-            t_ffn = time.perf_counter()
-            ffn_s += t_ffn - t_attn
         logits = T._unembed(cfg, self.params, h)[:, 0]
-        return (logits, h[:, 0], self._routed_experts(routes, live),
-                {"attn_host_s": attn_s, "ffn_host_s": ffn_s})
+        return logits, h[:, 0], self._routed_experts(routes, live)
 
     def _decode_mamba(self, j: int, p: dict, hn, live):
         """Mamba layer j's one step for every row, from and into the slots'
@@ -436,8 +470,8 @@ class PagedRunner:
         self._graph = None                  # the old graph's memory goes first
         g = _DecodeGraph(self.device, shapes, baked)
         g.load(embeds, tables, positions, active)
-        logits, hidden, routed, host_s = self._decode_body(g.embeds, *g.inputs)
-        metrics.note(graph_captures=1, **host_s)
+        logits, hidden, routed = self._decode_body(g.embeds, *g.inputs)
+        metrics.note(graph_captures=1)
         if routed is not None:
             metrics.keep(routed_experts=routed)
         g.capture(self._decode_body)
@@ -514,7 +548,7 @@ class _DecodeGraph:
         with _capture_lock, paged_attention.launches.held() as held, \
                 mamba_scan.launches.held() as scans, \
                 torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.logits, self.hidden, self.routed, _ = body(self.embeds, *self.inputs)
+            self.logits, self.hidden, self.routed = body(self.embeds, *self.inputs)
         self.launches, self.scan_launches = held[0], scans[0]
 
 
@@ -530,25 +564,26 @@ class StateRunner:
     one-token step that leaves inactive slots' state and KV untouched.
     """
 
+    whole_prompts = True        # one scan (JAX would restart a split prompt's state)
+    pages_carry_state = False   # no pages: the engine shares and ships none
+
     def __init__(self, cfg: ModelConfig, params, kv: PagedKVConfig, max_batch: int):
-        if cfg.arch_type not in ("ssm", "hybrid"):
-            raise ValueError(f"StateRunner serves ssm and hybrid models, not {cfg.arch_type}")
         self.cfg = cfg
         self.params = params
         self.kv = kv
         self.max_batch = max_batch
+        self.chunk_size = kv.max_seq
         self.device = params["lm_head"].device
         self.cache = T.init_decode_cache(cfg, max_batch, kv.max_seq, self.device)
 
-    def embed(self, tokens: np.ndarray) -> np.ndarray:
-        """Token embeddings as a host f32 array."""
-        idx = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=self.device)
-        return metrics.to_cpu(self.params["embed"][idx].float()).numpy()
+    def _refuse_state(self, what: str) -> None:
+        """Nothing to refuse: no page of this runner's moves."""
 
     @torch.no_grad()
-    def prefill(self, embeds: torch.Tensor, slot: int):
-        """embeds: (1, S, d), the whole prompt.  Fills ``slot``'s state
-        (and KV) and returns (logits (S, V), None)."""
+    def prefill(self, embeds: torch.Tensor, slot: int, block_table=None, start: int = 0):
+        """embeds: (1, S, d), the whole prompt (``block_table`` and
+        ``start`` are the paged runner's).  Fills ``slot``'s state (and KV)
+        and returns (logits (S, V), None)."""
         logits, cache1 = _prefill_from_embeds(self.cfg, self.params, embeds,
                                               self.kv.max_seq)
         for name, c in self.cache.items():
@@ -562,7 +597,8 @@ class StateRunner:
         unused).  Returns (logits (B, V), None)."""
         rows = torch.as_tensor(np.nonzero(np.asarray(active, bool))[0], device=self.device)
         pos = torch.as_tensor(np.asarray(positions, np.int64), device=self.device)
-        logits, _ = _decode_from_embeds(self.cfg, self.params, self.cache, embeds, pos, rows)
+        logits, _ = T.forward_decode(self.cfg.replace(modality="audio_frames"), self.params,
+                                     self.cache, embeds, pos, rows)
         return logits[:, 0], None
 
 
@@ -572,8 +608,3 @@ def _prefill_from_embeds(cfg, params, embeds, max_seq):
     """transformer.forward_prefill starting from embeddings (the inputs
     are treated as precomputed frames, which _embed passes through)."""
     return T.forward_prefill(cfg.replace(modality="audio_frames"), params, embeds, max_seq)
-
-
-def _decode_from_embeds(cfg, params, cache, embeds, positions, rows=None):
-    return T.forward_decode(cfg.replace(modality="audio_frames"), params, cache, embeds,
-                            positions, rows)

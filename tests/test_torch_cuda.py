@@ -518,10 +518,9 @@ def _decode_steps(cfg, gen, n=8, seed=0):
 def _eager_step(runner, embeds, tables, positions, active):
     """The eager body's (logits, hidden, routed experts or None)."""
     dev = runner.device
-    logits, hidden, routed, _ = runner._decode_body(
+    return runner._decode_body(
         embeds, torch.as_tensor(tables, device=dev), torch.as_tensor(positions, device=dev),
         torch.as_tensor(active, device=dev))
-    return logits, hidden, routed
 
 
 def _same_step(graph, eager, step):

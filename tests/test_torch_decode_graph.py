@@ -209,6 +209,5 @@ def test_the_cpu_decode_phase_notes_its_layer_loop_and_no_graph(monkeypatch):
     assert len(decode) >= 3
     for s in decode:
         assert "graph_replays" not in s.counts and "graph_captures" not in s.counts
-        assert s.counts["attn_host_s"] > 0 and s.counts["ffn_host_s"] > 0
         assert s.kept["routed_experts"].shape == (cfg.num_layers,)
     assert eng.runner._graph is None

@@ -77,7 +77,7 @@ def test_runner_prefill_and_decode_match_jax(dtype, kv_cache_dtype):
     last = []
     for s, p in enumerate(prompts):
         emb = jr.embed(p)
-        np.testing.assert_array_equal(tr.embed(p), emb)
+        np.testing.assert_array_equal(trun.embed(tr.params, p), emb)
         for c0 in range(0, len(p), chunk):
             n = min(chunk, len(p) - c0)
             e = np.pad(emb[c0:c0 + n], ((0, chunk - n), (0, 0)))
@@ -193,6 +193,55 @@ def test_engine_greedy_tokens_match_jax(kw):
     assert got == want and len(got) == len(prompts)
     assert teng.prefix_stats == jeng.prefix_stats
     assert teng.spec_stats == jeng.spec_stats
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_inputs_equal_the_host_built_rows_bit_for_bit(dtype):
+    """Two requests on four slots, one with a decode hook's ``extra_embed``:
+    every batch ``runner.decode`` receives equals, bit for bit, the one the
+    engine built on the host before (an f32 array of zeros, each active
+    slot's token row widened to f32 plus its extra row, cast to the model
+    dtype), and its inactive rows are zero."""
+    cfg, _, _, tp = _pair(dtype)
+    dt = getattr(torch, dtype)
+
+    def extra(data, step):
+        gen = torch.Generator().manual_seed(1000 * data["seed"] + step)
+        return (torch.randn(cfg.d_model, generator=gen) * 0.3).numpy()
+
+    def hook(data, info):
+        if info["phase"] == "decode" and data["seed"]:
+            return {"extra_embed": extra(data, info["step"])}
+        return None
+
+    eng = tar.AREngine("eng", cfg, tp, kv=TKV(**KV), max_batch=4, chunk_size=16,
+                       preprocess=hook,
+                       default_sampling=TSP(max_new_tokens=6, temperature=0.0))
+    decode, seen = eng.runner.decode, []
+
+    def recording_decode(embeds, tables, positions, active):
+        want = np.zeros((4, 1, cfg.d_model), np.float32)
+        for rid, seq in eng.scheduler.running.items():
+            if active[seq.slot]:
+                rt = eng._rt[rid]
+                row = trun.embed(tp, np.array(rt.tokens[-1:], np.int32))[0]
+                if rt.data["seed"]:
+                    row = row + np.asarray(extra(rt.data, len(rt.tokens) - 1), row.dtype)
+                want[seq.slot, 0] = row
+        assert embeds.dtype == dt
+        assert torch.equal(embeds, torch.as_tensor(want).to(dt))
+        assert not embeds[torch.as_tensor(~np.asarray(active))].any()
+        seen.append(int(np.asarray(active).sum()))
+        return decode(embeds, tables, positions, active)
+
+    eng.runner.decode = recording_decode
+    rng = np.random.default_rng(6)
+    for rid, n in enumerate((7, 12)):
+        eng.enqueue(rid, {"tokens": rng.integers(0, 256, n).astype(np.int32)}, TSP(),
+                    {"seed": rid})
+    while eng.has_work:
+        eng.step()
+    assert seen and max(seen) == 2
 
 
 def test_ar_engine_refuses_unported_families():

@@ -141,7 +141,7 @@ def test_state_runner_prefill_decode_and_inactive_slots_match_jax(arch):
     for slot, n in ((2, 11), (0, 7)):
         p = rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
         emb = jr.embed(p)
-        np.testing.assert_array_equal(tr.embed(p), emb)
+        np.testing.assert_array_equal(trun.embed(tr.params, p), emb)
         jl, _ = jr.prefill(jnp.asarray(emb)[None], slot)
         tl, th = tr.prefill(torch.from_numpy(emb)[None], slot)
         assert th is None and tl.shape == (n, cfg.vocab_size)
@@ -191,7 +191,7 @@ def test_engine_greedy_tokens_match_jax(arch):
     want, _ = _run_engine(jar, JSP, jcfg, jp, prompts, 6, token_budget=64)
     got, teng = _run_engine(tar, TSP, cfg, tp, prompts, 6, token_budget=64)
     assert got == want and len(got) == len(prompts)
-    assert not teng._paged and teng.scheduler.chunk_size == teng.kv.max_seq
+    assert teng.runner.whole_prompts and teng.scheduler.chunk_size == teng.kv.max_seq
 
 
 def test_engine_prefills_a_prompt_longer_than_the_token_budget_whole():

@@ -84,11 +84,6 @@ def test_phases_nest_under_their_step_and_sum_to_no_more():
     for name in {s.name for s in children}:
         assert phases[name] == pytest.approx(sum(s.seconds for s in children
                                                  if s.name == name))
-    decode = [s for s in children if s.name == "model.decode"]
-    assert all(0 < s.counts["attn_host_s"] + s.counts["ffn_host_s"] <= s.seconds
-               for s in decode)
-    assert phases["model.decode.ffn_host_s"] == pytest.approx(
-        sum(s.counts["ffn_host_s"] for s in decode))
 
 
 @pytest.mark.parametrize("groups", [1, 2])
@@ -101,13 +96,14 @@ def test_decode_step_syncs_are_its_rows_plus_its_sampling_groups(groups):
     assert decode_only
     for s in decode_only:
         assert s.counts["sample_groups"] <= groups
-        assert s.counts["syncs"] == s.counts["rows"] + s.counts["sample_groups"]
+        # a row reads nothing back: its embedding is gathered on the device
+        assert s.counts["syncs"] == s.counts["sample_groups"]
         assert 0 <= s.counts["wait_s"] <= s.seconds
     if groups == 2:
         assert max(s.counts["sample_groups"] for s in decode_only) == 2
     # a prefill step reads each finished prompt's first token once more
     for s in steps:
-        assert s.counts["syncs"] >= s.counts.get("rows", 0) + s.counts.get("sample_groups", 0)
+        assert s.counts["syncs"] >= s.counts.get("sample_groups", 0)
     # the reads of enqueue (one embedding read per prompt) are counted apart
     phases = orch.stage_metrics()[f"syncs{groups}"]["step_phases"]
     assert phases["enqueue_syncs"] == len(reqs)

@@ -1,10 +1,9 @@
 """Host cost of the AR engine step's tracer (``repro_torch.core.metrics``),
 per step, on the machine it runs on: the step's ``StepTrace`` with its
-seven phases and the decode loop's note, the timing of each device->host
-read, and the decode layer loop's clock reads, each timed over many
+phases, and the timing of each device->host read, each timed over many
 synthetic steps and compared with the same work untraced.
 
-    PYTHONPATH=src python tools/trace_cost.py [--steps 20000] [--layers 48] [--reads 17]
+    PYTHONPATH=src python tools/trace_cost.py [--steps 20000] [--reads 1]
 
 Prints one JSON object: microseconds per step of each part with
 ``enabled`` on and off, and ``perf_counter``'s own cost.
@@ -31,7 +30,7 @@ def _per_step_us(fn, steps: int) -> float:
 
 
 def scaffold(steps: int) -> None:
-    """A step's trace: open, its phases, the layer loop's note, finish."""
+    """A step's trace: open, its phases, finish."""
     totals = metrics.StepTotals()
     for _ in range(steps):
         tr = metrics.StepTrace("cost", totals, "engine.schedule")
@@ -39,8 +38,6 @@ def scaffold(steps: int) -> None:
         tr.counts["rows"] = 16
         for name in PHASES:
             tr.phase(name)
-            if name == "model.decode":
-                metrics.note(attn_host_s=0.0, ffn_host_s=0.0)
         tr.finish()
 
 
@@ -52,26 +49,11 @@ def reads(steps: int, n: int, x: torch.Tensor, traced: bool) -> None:
                 metrics.to_cpu(x) if traced else x.to("cpu")
 
 
-def layer_loop(steps: int, layers: int, traced: bool) -> None:
-    """The decode loop's two clock reads and two sums a layer."""
-    clock = time.perf_counter
-    for _ in range(steps):
-        attn_s = ffn_s = 0.0
-        t_ffn = clock() if traced else 0.0
-        for _ in range(layers):
-            if traced:
-                t_attn = clock()
-                attn_s += t_attn - t_ffn
-                t_ffn = clock()
-                ffn_s += t_ffn - t_attn
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=20000)
-    ap.add_argument("--layers", type=int, default=48)
-    ap.add_argument("--reads", type=int, default=17,
-                    help="device->host reads a step (16 rows and one sampling group)")
+    ap.add_argument("--reads", type=int, default=1,
+                    help="device->host reads a step (one a sampling group)")
     args = ap.parse_args()
     metrics.spans = deque(maxlen=metrics.MAX_SPANS)
     x = torch.zeros(1, dtype=torch.long)
@@ -85,11 +67,8 @@ def main() -> None:
     metrics.enabled = True
     out["reads_us_traced"] = _per_step_us(lambda k: reads(k, args.reads, x, True), n)
     out["reads_us_plain"] = _per_step_us(lambda k: reads(k, args.reads, x, False), n)
-    out["layer_loop_us_traced"] = _per_step_us(lambda k: layer_loop(k, args.layers, True), n)
-    out["layer_loop_us_plain"] = _per_step_us(lambda k: layer_loop(k, args.layers, False), n)
     out["tracer_us_per_step"] = (out["scaffold_us_on"]
-                                 + out["reads_us_traced"] - out["reads_us_plain"]
-                                 + out["layer_loop_us_traced"] - out["layer_loop_us_plain"])
+                                 + out["reads_us_traced"] - out["reads_us_plain"])
     print(json.dumps(out))
 
 
