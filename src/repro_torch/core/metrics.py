@@ -16,7 +16,10 @@ device->host read the engine and its runner make goes through
 ``note`` each prefill chunk of a model with Mamba layers reaches
 ``engine.prefill``: ``mamba_resets`` (it began a prompt from a zero
 state) or ``mamba_carries`` (it went on from the state the chunk before
-left); device tensors a phase made, read only once the work is over,
+left), and every prefill chunk ``prefill_graph_replays``,
+``prefill_graph_captures`` or ``prefill_eager`` (how it ran); a CUDA
+graph's capture ``held`` the notes of the work it holds, which each
+replay notes again; device tensors a phase made, read only once the work is over,
 reach its span through ``keep``
 (``routed_experts``, the distinct experts a decode step routed to).
 
@@ -37,6 +40,7 @@ child.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
 import time
@@ -197,10 +201,29 @@ class reads_into:
 
 
 def note(**counts: float) -> None:
-    """Add ``counts`` to the running phase of this thread's step, if any."""
+    """Add ``counts`` to the running phase of this thread's step, if any,
+    or to the tally of the ``held`` block this thread is in."""
+    tally = getattr(_local, "held", None)
+    if tally is not None:
+        for k, v in counts.items():
+            tally[k] = tally.get(k, 0) + v
+        return
     step = getattr(_local, "step", None)
     if step is not None:
         step.note(counts)
+
+
+@contextlib.contextmanager
+def held():
+    """Tally this thread's ``note`` calls in the block apart from its step,
+    in the dict it yields (a CUDA graph's capture: the work it notes runs
+    at each replay, which its owner notes)."""
+    outer = getattr(_local, "held", None)
+    _local.held = tally = {}
+    try:
+        yield tally
+    finally:
+        _local.held = outer
 
 
 def keeping() -> bool:

@@ -5,7 +5,8 @@ attention / Mamba1 / MoE layers of Jamba, ``cfg.interleaved``):
   - ``prefill_chunk``: process C prompt tokens of ONE request, writing their
     K/V into the request's pages and attending over all its history pages
     (chunked prefill, Sarathi-style); a Mamba layer carries the request's
-    slot state from the chunk before (zeroed at the prompt's first chunk).
+    slot state from the chunk before (zeroed at the prompt's first chunk);
+    on the card one CUDA graph of the whole chunk, replayed.
   - ``decode``: batched one-token step for ALL active slots against the
     shared page pool (vLLM-style paged attention, the CUDA kernel on the
     card) and, for Mamba layers, the slots' states (the scan's CUDA
@@ -30,11 +31,11 @@ The page pools and state caches are updated in place (the JAX package
 donates them to its jitted steps instead).  Writes go only to the
 positions a request owns: the JAX package routes the rest to page id
 ``num_pages`` and drops them, or masks inactive slots back; here a
-prefill chunk's padding is never written, and a decode batch's inactive
-slot writes what its first active slot writes, to the same place.  A
-MoE layer routes every row of its input, as the JAX runner does: a
-prefill chunk's padding and a decode batch's inactive slots take expert
-capacity too, so the same pairs are dropped.  Prefill runs with the f32
+prefill chunk's padding row writes what its last valid row writes, and
+a decode batch's inactive slot what its first active slot writes, to
+the same place.  A MoE layer routes every row of its input, as the JAX
+runner does: a prefill chunk's padding and a decode batch's inactive
+slots take expert capacity too, so the same pairs are dropped.  Prefill runs with the f32
 activations its f32 embeddings give (f32 arithmetic against bf16
 weights, as ``jnp`` promotes them; on the card the weights are read in
 place, ``kernels/mixed_gemm.py``); decode runs in the model dtype.
@@ -55,7 +56,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import metrics
 from repro_torch.engine.kv_cache import (PagedKVConfig, init_kv_pages,
                                          init_kv_scale_pages)
-from repro_torch.kernels import build, mamba_scan, ops, paged_attention, ref
+from repro_torch.kernels import build, mamba_scan, mixed_gemm, ops, paged_attention, ref
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe
@@ -161,7 +162,8 @@ class PagedRunner:
         self.pages_carry_state = self.ssm_h is None     # no Mamba state beside them
         self._layers = T.layer_views(cfg, params)
         self._window = cfg.sliding_window if cfg.attn_variant == "swa" else 0
-        self._graph = None          # the decode step's _DecodeGraph, on a CUDA runner
+        self._graph = None          # the decode step's _StepGraph, on a CUDA runner
+        self._prefill_graph = None  # the prefill chunk's, at the bucket shape
         if self.device.type == "cuda" and ops.get_backend() != "ref":
             # the kernels the steps launch, built together (one nvcc each)
             # rather than one after another at their first launches
@@ -199,7 +201,8 @@ class PagedRunner:
     def prefill(self, embeds, slot, block_table, start):
         """``prefill_chunk`` of n = embeds.shape[1] rows padded to
         ``chunk_size``, as the JAX engine pads them (the padding takes MoE
-        capacity but is never written); (logits, hidden) of the n rows."""
+        capacity; its K/V writes repeat the last valid row's); (logits,
+        hidden) of the n rows."""
         n = embeds.shape[1]
         padded = torch.nn.functional.pad(embeds, (0, 0, 0, max(0, self.chunk_size - n)))
         logits, hidden = self.prefill_chunk(padded, block_table, start, n, slot=slot)
@@ -207,39 +210,79 @@ class PagedRunner:
 
     @torch.no_grad()
     def prefill_chunk(self, embeds, block_table, start, valid_len, slot=None):
-        """embeds: (1, C, d); block_table: (pp,); start, valid_len: ints;
-        ``slot``: the request's batch slot, which a model with Mamba layers
-        needs: the chunk's valid rows scan on from the slot's state (a zero
-        state at start 0, a prompt's first chunk or a preempted request's
-        recompute) and leave it for the next chunk or decode.  Returns
-        (logits (C, V), hidden (C, d)) on the runner's device."""
+        """embeds: (1, C, d); block_table: (pp,); start, valid_len: ints,
+        1 <= valid_len <= C; ``slot``: the request's batch slot, which a
+        model with Mamba layers needs: the chunk's valid rows scan on from
+        the slot's state (a zero state at start 0, a prompt's first chunk
+        or a preempted request's recompute) and leave it for the next
+        chunk or decode.  Returns (logits (C, V), hidden (C, d)) on the
+        runner's device.
+
+        On a CUDA runner a chunk of the bucket shape (``chunk_size`` f32
+        rows, a table of ``max_pages_per_seq`` pages) is one CUDA graph of
+        ``_prefill_body`` (see ``_StepGraph``), replayed on the caller's
+        current stream: the returned tensors are then the graph's own
+        outputs, which the next such call overwrites.  The body runs
+        eagerly on the CPU, under a ``DistContext``, with the plain
+        attention (backend "ref") and for other shapes or types
+        (speculative verification's buckets in the model dtype).  The
+        call notes ``prefill_graph_replays``, ``prefill_graph_captures``
+        or ``prefill_eager``."""
         cfg = self.cfg
-        page = self.kv.page_size
-        h = torch.as_tensor(embeds, device=self.device)
-        c = h.shape[1]
+        embeds = torch.as_tensor(embeds)
         start, valid_len = int(start), int(valid_len)
+        if not 1 <= valid_len <= embeds.shape[1]:
+            # every padding row repeats the last valid row's K/V write
+            raise ValueError(f"a prefill chunk of {embeds.shape[1]} rows with "
+                             f"{valid_len} valid")
         if self.ssm_h is not None:
             if slot is None:
                 raise ValueError(f"{cfg.name}: a prefill chunk needs its request's slot")
             metrics.note(**{"mamba_resets" if start == 0 else "mamba_carries": 1})
-        bt = torch.as_tensor(np.asarray(block_table), dtype=torch.long,
-                             device=self.device)
-        pos = start + torch.arange(c, device=self.device)
-        positions = pos[None]                                   # (1, C)
-        written = pos[:valid_len]                               # padding is not written
+        ints = (np.asarray(block_table, np.int32), np.int32(start), np.int32(valid_len),
+                np.int32(slot or 0))
+        if self._graphs() and embeds.dtype == torch.float32 \
+                and embeds.shape == (1, self.chunk_size, cfg.d_model) \
+                and ints[0].shape == (self.kv.max_pages_per_seq,):
+            return self._run_graph("_prefill_graph", self._prefill_body, embeds, ints,
+                                   "prefill_graph")[0]
+        metrics.note(prefill_eager=1)
+        return self._prefill_body(embeds.to(self.device), *_device_ints(ints, self.device))
+
+    def _prefill_body(self, h, table, start, valid, slot):
+        """A prefill chunk on device tensors: h (1, C, d); table (pp,)
+        int32; start, valid and slot 0-d int32.  Its device work depends on
+        (C, pp) alone and nothing in it reads the device from the host, so
+        one CUDA graph can hold it.  Every row is computed; the rows from
+        ``valid`` on are padding.  A padding row writes the last valid
+        row's K/V to that row's place, so duplicate writes carry equal
+        values and no page the request does not own is touched (the JAX
+        package sends those rows to page ``num_pages`` and drops them); a
+        Mamba layer carries its state over the padding unchanged and
+        gives it nothing (``_prefill_mamba``), so every row of the
+        residual stream is what the valid rows alone leave.  Returns
+        (logits (C, V), hidden (C, d))."""
+        cfg = self.cfg
+        page = self.kv.page_size
+        start, valid = start.long(), valid.long()
+        rows = torch.arange(h.shape[1], device=h.device)
+        positions = (start + rows)[None]                        # (1, C)
+        src = torch.minimum(rows, valid - 1)                    # padding: the last valid row
+        written = start + src
+        bt = table.long()
         pid, wslot = bt[written // page], written % page
         nkv, hd = cfg.num_kv_heads, cfg.head_dim
         for i, lp in enumerate(self._layers):
             hn = L.rmsnorm(lp["ln1"], h, cfg.rmsnorm_eps)
             j = self._pool[i]
             if "mamba" in lp:
-                h = h + self._prefill_mamba(j, lp["mamba"], hn, slot, start, valid_len)
+                h = h + self._prefill_mamba(j, lp["mamba"], hn, slot, start, valid)
             else:
                 q, k, v = L._qkv(cfg, lp["attn"], hn)
                 if cfg.rope_theta:
                     q = L.rope(q, positions, cfg.rope_theta)
                     k = L.rope(k, positions, cfg.rope_theta)
-                self._write_kv(j, k[0, :valid_len], v[0, :valid_len], pid, wslot)
+                self._write_kv(j, k[0, src], v[0, src], pid, wslot)
                 kp, vp, ksp, vsp = self._layer_pools(j)
                 if self.quant:
                     k_all = (kp[bt].float() * ksp[bt][..., None]).to(h.dtype)
@@ -255,16 +298,21 @@ class PagedRunner:
         logits = T._unembed(cfg, self.params, h)[0]
         return logits, h[0]
 
-    def _prefill_mamba(self, j: int, p: dict, hn, slot: int, start: int, valid: int):
-        """Mamba layer j over a chunk's valid rows, from ``slot``'s state
-        (none at start 0), which it then holds; the padding rows get
-        nothing."""
-        hs, cs = self.ssm_h[j, slot], self.ssm_conv[j, slot]
-        state = None if start == 0 else (hs[None], cs[None].to(hn.dtype))
-        y, (h_last, conv) = M.mamba1_forward(self.cfg, p, hn[:, :valid], state)
-        hs.copy_(h_last[0])
-        cs.copy_(conv[0])
-        return torch.nn.functional.pad(y, (0, 0, 0, hn.shape[1] - valid))
+    def _prefill_mamba(self, j: int, p: dict, hn, slot, start, valid):
+        """Mamba layer j over a chunk, from ``slot``'s state (a zero state
+        at start 0), which its valid rows then leave there: the padding
+        rows' dt is 0, which carries the state over them unchanged, and
+        they get nothing."""
+        hs, cs = self.ssm_h[j], self.ssm_conv[j]
+        slot = slot.long()[None]
+        carry = torch.as_tensor(start > 0, device=hn.device)
+        state = (torch.where(carry, hs[slot], 0.0),
+                 torch.where(carry, cs[slot], 0).to(hn.dtype))
+        y, (h_last, conv) = M.mamba1_forward(self.cfg, p, hn, state, valid=valid)
+        hs.index_copy_(0, slot, h_last)
+        cs.index_copy_(0, slot, conv.to(cs.dtype))
+        rows = torch.arange(hn.shape[1], device=hn.device)
+        return torch.where((rows < valid)[:, None], y, 0.0)
 
     # ---- prefix cache: copy-on-write page copies -------------------------
     @torch.no_grad()
@@ -351,28 +399,28 @@ class PagedRunner:
         hidden (B, d)) on the runner's device.
 
         On a CUDA runner the step is one CUDA graph of ``_decode_body``
-        (see ``_DecodeGraph``), replayed on the caller's current stream:
+        (see ``_StepGraph``), replayed on the caller's current stream:
         the returned tensors are then the graph's own outputs, which the
         next call overwrites.  The body runs eagerly on the CPU, under a
         ``DistContext`` (expert parallelism's collectives are not
         captured) and with the plain attention (backend "ref").  Either
         way a MoE step keeps its ``routed_experts`` on its ``model.decode``
         span (``metrics.keep``)."""
-        positions = np.asarray(positions).astype(np.int32)
-        active = np.asarray(active, bool)
-        tables = np.asarray(block_tables, np.int32)
+        ints = (np.asarray(block_tables, np.int32), np.asarray(positions, np.int32),
+                np.asarray(active, bool).astype(np.int32))
         embeds = torch.as_tensor(embeds)
-        if not active.any():
+        if not ints[2].any():
             # every inactive row repeats an active row's K/V write
             raise ValueError("a decode batch needs an active row")
-        if self.device.type == "cuda" and ops.get_backend() != "ref" and get_context() is None:
-            return self._graph_decode(embeds, tables, positions, active)
-        dev = self.device
-        logits, hidden, routed = self._decode_body(
-            embeds.to(dev), torch.as_tensor(tables, device=dev),
-            torch.as_tensor(positions, device=dev), torch.as_tensor(active, device=dev))
-        if routed is not None:
-            metrics.keep(routed_experts=routed)
+        if self._graphs():
+            (logits, hidden, routed), replayed = self._run_graph(
+                "_graph", self._decode_body, embeds, ints, "graph")
+        else:
+            logits, hidden, routed = self._decode_body(embeds.to(self.device),
+                                                       *_device_ints(ints, self.device))
+            replayed = False
+        if routed is not None and metrics.keeping():
+            metrics.keep(routed_experts=routed.clone() if replayed else routed)
         return logits, hidden
 
     def _decode_body(self, h, tables, positions, active):
@@ -447,36 +495,56 @@ class PagedRunner:
         hit = torch.zeros((ids.shape[0], e + 1), dtype=torch.bool, device=ids.device)
         return hit.scatter_(1, ids.flatten(1), True)[:, :e].sum(1)
 
-    def _graph_decode(self, embeds, tables, positions, active):
-        """``decode`` by a CUDA graph: captured after one eager run of the
-        step at the first call, and again whenever what the capture baked
-        in changes (the shapes, the pools, ``models/moe.py:
-        drop_counter``); replayed at every other call."""
-        shapes = (tuple(embeds.shape), embeds.dtype, tables.shape)
+    def _graphs(self) -> bool:
+        """Whether the steps run as CUDA graphs: on the card, with the
+        kernels (not backend "ref") and outside a ``DistContext``, whose
+        collectives are not captured."""
+        return self.device.type == "cuda" and ops.get_backend() != "ref" \
+            and get_context() is None
+
+    def _run_graph(self, name: str, body, embeds, ints, note: str):
+        """``body`` by the CUDA graph this runner holds as ``name``:
+        captured after one eager run at the first call, and again whenever
+        what the capture baked in changes (the shapes, the pools, the
+        Mamba states, ``models/moe.py: drop_counter``); replayed at every
+        other call.  Notes ``<note>_captures`` or ``<note>_replays``.
+        Returns (the body's outputs, whether they are the graph's)."""
         baked = (self.k_pages, self.v_pages, self.k_scales, self.v_scales, self.ssm_h,
                  self.ssm_conv, moe.drop_counter)
-        g = self._graph
-        if g is not None and g.shapes == shapes \
-                and all(a is b for a, b in zip(g.baked, baked)):
-            g.load(embeds, tables, positions, active)
-            g.launch()
-            paged_attention.launches.add(g.launches)
-            if g.scan_launches:
-                mamba_scan.launches.add(g.scan_launches)
-            metrics.note(graph_replays=1)
-            if g.routed is not None and metrics.keeping():
-                metrics.keep(routed_experts=g.routed.clone())
-            return g.logits, g.hidden
-        self._graph = None                  # the old graph's memory goes first
-        g = _DecodeGraph(self.device, shapes, baked)
-        g.load(embeds, tables, positions, active)
-        logits, hidden, routed = self._decode_body(g.embeds, *g.inputs)
-        metrics.note(graph_captures=1)
-        if routed is not None:
-            metrics.keep(routed_experts=routed)
-        g.capture(self._decode_body)
-        self._graph = g
-        return logits, hidden
+        g = getattr(self, name)
+        if g is not None and g.fits(embeds, ints, baked):
+            out = g.replay(embeds, ints)
+            metrics.note(**{f"{note}_replays": 1})
+            return out, True
+        setattr(self, name, None)           # the old graph's memory goes first
+        g = _StepGraph(self.device, embeds, ints, baked)
+        g.load(embeds, ints)
+        out = body(g.embeds, *g.inputs)
+        metrics.note(**{f"{note}_captures": 1})
+        g.capture(body)
+        setattr(self, name, g)
+        return out, False
+
+
+def _pack(ints) -> np.ndarray:
+    """The host integer arrays ``ints`` one after another in one int32 vector."""
+    return np.concatenate([np.asarray(a, np.int32).reshape(-1) for a in ints])
+
+
+def _device_ints(ints, device) -> list:
+    """The host integer arrays ``ints`` as int32 tensors on ``device``,
+    views of one vector copied in one go."""
+    return _unpack(torch.as_tensor(_pack(ints), device=device), ints)
+
+
+def _unpack(packed: torch.Tensor, ints) -> list:
+    """Views of ``packed`` shaped as the arrays ``ints``, one after another."""
+    out, at = [], 0
+    for a in ints:
+        n = int(np.size(a))
+        out.append(packed[at:at + n].view(np.shape(a)))
+        at += n
+    return out
 
 
 #: one capture at a time in a process: ``torch.cuda.graph`` empties the
@@ -494,38 +562,41 @@ def _libcuda() -> ctypes.PyDLL:
     return lib
 
 
-class _DecodeGraph:
-    """``PagedRunner._decode_body`` captured as one CUDA graph: the static
-    buffers its kernels read (the embeddings, and the tables, positions
-    and active mask packed in one int32 vector, filled from pinned host
-    memory) and write (``logits``, ``hidden``, ``routed``), the paged-
-    attention and scan wrapper calls it holds (``launches``,
-    ``scan_launches``), the ``shapes`` it was captured at and the tensors
-    it ``baked`` in."""
+class _StepGraph:
+    """A step body of ``PagedRunner`` (``_decode_body``, ``_prefill_body``)
+    captured as one CUDA graph: the static buffers its kernels read (the
+    embeddings, and its integer inputs packed in one int32 vector, filled
+    from pinned host memory) and write (``outputs``); the wrapper calls of
+    the paged-attention, scan and f32 x bf16 product kernels it holds
+    (``launches``, ``scan_launches``, ``gemm_launches``) and the counts
+    its capture noted (``notes``: the products' weight bytes), which each
+    replay counts and notes again; the ``shapes`` it was captured at and
+    the tensors it ``baked`` in."""
 
-    def __init__(self, device, shapes, baked):
-        (b, _, d), dtype, (_, pp) = shapes
-        self.shapes, self.baked = shapes, baked
-        n = b * pp + 2 * b
+    def __init__(self, device, embeds, ints, baked):
+        self.shapes, self.baked = _shapes(embeds, ints), baked
+        n = sum(int(np.size(a)) for a in ints)
         self.host = torch.empty(n, dtype=torch.int32, pin_memory=True)
-        self.packed = packed = torch.empty(n, dtype=torch.int32, device=device)
-        self.inputs = (packed[:b * pp].view(b, pp), packed[b * pp:b * pp + b],
-                       packed[b * pp + b:])
-        self.embeds = torch.empty((b, 1, d), dtype=dtype, device=device)
+        self.packed = torch.empty(n, dtype=torch.int32, device=device)
+        self.inputs = _unpack(self.packed, ints)
+        self.embeds = torch.empty(embeds.shape, dtype=embeds.dtype, device=device)
         self.copied = torch.cuda.Event()
         self.graph = torch.cuda.CUDAGraph()
-        self.logits = self.hidden = self.routed = None
-        self.launches = self.scan_launches = 0
+        self.outputs = None
+        self.launches = self.scan_launches = self.gemm_launches = 0
+        self.notes: dict = {}
 
-    def load(self, embeds, tables, positions, active) -> None:
-        """Copy one step's inputs into the static buffers, on the current
+    def fits(self, embeds, ints, baked) -> bool:
+        """Whether a call with these inputs, and these tensors to bake in,
+        can replay this graph."""
+        return self.shapes == _shapes(embeds, ints) \
+            and all(a is b for a, b in zip(self.baked, baked))
+
+    def load(self, embeds, ints) -> None:
+        """Copy one call's inputs into the static buffers, on the current
         stream, without waiting for the device."""
         self.copied.synchronize()           # the last call's copy has read the host buffer
-        host = self.host.numpy()
-        n, b = tables.size, len(positions)
-        host[:n] = tables.reshape(-1)
-        host[n:n + b] = positions
-        host[n + b:] = active
+        self.host.numpy()[:] = _pack(ints)
         self.packed.copy_(self.host, non_blocking=True)
         self.copied.record()
         self.embeds.copy_(embeds)
@@ -537,7 +608,7 @@ class _DecodeGraph:
         CUPTI flushes, and a graph launched beside the flush deadlocks both
         threads (H100, torch 2.11: two of five profiled runs of the MoE
         cell hung there); holding the lock puts the one after the other.
-        The body draws no random numbers, so the launch needs none of
+        The bodies draw no random numbers, so the launch needs none of
         ``replay``'s generator bookkeeping."""
         rc = _libcuda().cuGraphLaunch(self.graph.raw_cuda_graph_exec(),
                                       torch.cuda.current_stream().cuda_stream)
@@ -546,10 +617,30 @@ class _DecodeGraph:
 
     def capture(self, body) -> None:
         with _capture_lock, paged_attention.launches.held() as held, \
-                mamba_scan.launches.held() as scans, \
+                mamba_scan.launches.held() as scans, mixed_gemm.launches.held() as gemms, \
+                metrics.held() as notes, \
                 torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.logits, self.hidden, self.routed = body(self.embeds, *self.inputs)
-        self.launches, self.scan_launches = held[0], scans[0]
+            self.outputs = body(self.embeds, *self.inputs)
+        self.launches, self.scan_launches, self.gemm_launches = held[0], scans[0], gemms[0]
+        self.notes = notes
+
+    def replay(self, embeds, ints):
+        """Load the inputs, launch, and count what the capture held; the
+        outputs are the graph's own, which the next replay overwrites."""
+        self.load(embeds, ints)
+        self.launch()
+        for counter, n in ((paged_attention.launches, self.launches),
+                           (mamba_scan.launches, self.scan_launches),
+                           (mixed_gemm.launches, self.gemm_launches)):
+            if n:
+                counter.add(n)
+        if self.notes:
+            metrics.note(**self.notes)
+        return self.outputs
+
+
+def _shapes(embeds, ints) -> tuple:
+    return tuple(embeds.shape), embeds.dtype, tuple(np.shape(a) for a in ints)
 
 
 class StateRunner:

@@ -9,7 +9,7 @@ states (flash-decoding).  ``plan`` computes the split from shapes alone,
 so no call reads ``seq_lens`` on the host.  One wrapper call is two
 kernel launches (split, then combine), or one when a row fits in one
 partition; ``launches`` counts wrapper calls (a graph's captured
-calls at each replay: ``engine/runner.py: _DecodeGraph``).
+calls at each replay: ``engine/runner.py: _StepGraph``).
 
 On a CUDA tensor this wrapper launches the kernels (or raises); on a CPU
 tensor it runs the plain version, ``ref.paged_attention``.

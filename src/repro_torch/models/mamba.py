@@ -88,11 +88,13 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 state: torch.Tensor | None):
+                 state: torch.Tensor | None, valid: torch.Tensor | None = None):
     """Depthwise causal conv along S. x: (B, S, ch); w: (cw, ch).
 
     state: (B, cw-1, ch) trailing inputs of the previous segment (None for
-    zero history).  Returns (y (B, S, ch), new_state (B, cw-1, ch)).
+    zero history).  Returns (y (B, S, ch), new_state (B, cw-1, ch)):
+    the last cw-1 inputs, or with ``valid`` (a 0-d tensor) the last cw-1
+    before row ``valid``.
     """
     cw = w.shape[0]
     bsz, s, ch = x.shape
@@ -100,20 +102,27 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         state = torch.zeros((bsz, cw - 1, ch), dtype=x.dtype, device=x.device)
     xp = torch.cat([state, x], dim=1)                         # (B, S+cw-1, ch)
     y = sum(xp[:, i:i + s] * w[i][None, None] for i in range(cw))
-    new_state = xp[:, s:]                                     # last cw-1 inputs
+    if valid is None:
+        new_state = xp[:, s:]                                 # last cw-1 inputs
+    else:                                                     # those before row valid
+        new_state = xp[:, valid + torch.arange(cw - 1, device=x.device)]
     return F.silu(y + b[None, None]), new_state
 
 
-def mamba1_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, state: tuple | None = None):
+def mamba1_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, state: tuple | None = None,
+                   valid: torch.Tensor | None = None):
     """x: (B, S, d). state: (h (B, di, n), conv (B, cw-1, di)) or None.
     Returns (y (B, S, d), new_state).  With ``cfg.ssm_dt_norms`` (Jamba)
-    the low-rank dt, B and C go through RMSNorms after ``x_proj``."""
+    the low-rank dt, B and C go through RMSNorms after ``x_proj``.
+    ``valid``: a 0-d tensor; the rows from it on are padding, whose dt is
+    0 (exp(0 A) = 1 and 0 B x = 0: the state passes them unchanged), so
+    new_state is the state after row valid - 1."""
     di, n = cfg.d_inner, cfg.ssm_state
     r = dt_rank(cfg)
     h0, conv0 = state if state is not None else (None, None)
     xz = matmul(x, p["in_proj"])                              # (B, S, 2di)
     xs, z = xz[..., :di], xz[..., di:]
-    xs, conv_state = _causal_conv(xs, p["conv_w"], p["conv_b"], conv0)
+    xs, conv_state = _causal_conv(xs, p["conv_w"], p["conv_b"], conv0, valid)
     proj = matmul(xs, p["x_proj"])                            # (B, S, r+2n)
     dtr, Bm, Cm = proj[..., :r], proj[..., r:r + n], proj[..., r + n:]
     if cfg.ssm_dt_norms:
@@ -121,6 +130,8 @@ def mamba1_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, state: tuple | No
         dtr = rmsnorm(p["dt_ln"], dtr, eps)
         Bm, Cm = rmsnorm(p["b_ln"], Bm, eps), rmsnorm(p["c_ln"], Cm, eps)
     dt = softplus(matmul(dtr, p["dt_proj"]) + p["dt_bias"].to(x.dtype))
+    if valid is not None:
+        dt = torch.where(torch.arange(x.shape[1], device=x.device)[:, None] < valid, dt, 0.0)
     A = -torch.exp(p["A_log"])                                # (di, n)
     y, h = ops.mamba1_scan(xs, dt, A, Bm, Cm, p["D"], h0)
     y = y * F.silu(z)

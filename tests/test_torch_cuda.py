@@ -1201,3 +1201,147 @@ def test_a_prefill_chunk_through_the_kernel_matches_the_widening(cuda, monkeypat
     n_attn = cfg.layer_layout.count("A")
     assert mg.launches.value == launched and runner._graph.launches == n_attn
     assert pa.launches.value - paged == 2 * n_attn
+
+
+# ---------------------------------------------------------------------------
+# the prefill chunk as one CUDA graph (engine/runner.py: PagedRunner.prefill_chunk)
+# ---------------------------------------------------------------------------
+
+PREFILL_C, PREFILL_PP = 64, 8        # pages of 16: a first chunk at 0, a carried one at 64
+_PREFILL_PARAMS: dict = {}
+
+
+def _prefill_pair(which, kv_cache_dtype, gen):
+    """Two runners of ``_two_layers(which)`` over one set of weights, equal
+    random pools and Mamba states: one prefills through its graph, the
+    other runs the eager body."""
+    from repro_torch.engine.kv_cache import PagedKVConfig
+    from repro_torch.engine.runner import PagedRunner
+    from repro_torch.models import transformer as T
+    cfg = _two_layers(which).replace(kv_cache_dtype=kv_cache_dtype)
+    if which not in _PREFILL_PARAMS:
+        _PREFILL_PARAMS[which] = T.init_params(_two_layers(which), gen)
+    kv = PagedKVConfig(num_pages=GRAPH_B * PREFILL_PP + 8, page_size=GRAPH_PAGE,
+                       max_pages_per_seq=PREFILL_PP)
+    graph, eager = (PagedRunner(cfg, _PREFILL_PARAMS[which], kv, max_batch=GRAPH_B,
+                                chunk_size=PREFILL_C) for _ in range(2))
+    eager._graphs = lambda: False
+    for name in ("k_pages", "v_pages", "k_scales", "v_scales", "ssm_h", "ssm_conv"):
+        t = getattr(graph, name)
+        if t is None:
+            continue
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device="cuda",
+                                  dtype=torch.int8))
+        else:
+            t.copy_((torch.rand(t.shape, generator=gen, device="cuda") + 0.5).to(t.dtype))
+        getattr(eager, name).copy_(t)
+    return cfg, graph, eager
+
+
+def _states(runner) -> dict:
+    return {n: getattr(runner, n).clone()
+            for n in ("k_pages", "v_pages", "k_scales", "v_scales", "ssm_h", "ssm_conv")
+            if getattr(runner, n) is not None}
+
+
+def _traced_chunk(runner, *args, **kwargs):
+    """One ``prefill_chunk`` inside an engine step's ``engine.prefill``
+    phase: (its outputs cloned, the counts it noted, the f32 x bf16 and
+    scan wrapper calls it counted)."""
+    from repro_torch.core import metrics
+    trace = metrics.StepTrace("t", metrics.StepTotals(), first="engine.prefill")
+    trace.worked = True
+    n_mg, n_ms = mg.launches.value, ms.launches.value
+    out = [t.clone() for t in runner.prefill_chunk(*args, **kwargs)]
+    torch.cuda.synchronize()
+    trace.phase(None)
+    trace.finish()
+    return out, trace._closed[0][4], mg.launches.value - n_mg, ms.launches.value - n_ms
+
+
+@pytest.mark.parametrize("which", ["qwen", "jamba"])
+@pytest.mark.parametrize("valid", [1, 19, 63, 64])
+@pytest.mark.parametrize("start", [0, PREFILL_C], ids=["first", "carried"])
+@pytest.mark.parametrize("kv_cache_dtype", ["", "int8"], ids=["bf16", "int8"])
+def test_prefill_graph_replays_the_eager_chunk(cuda, which, valid, start, kv_cache_dtype):
+    """Two layers at published widths (Qwen3-30B-A3B's attention and MoE of
+    128 experts; Jamba2-Mini's Mamba1 with a dense MLP, then attention with
+    a MoE): three chunks of ``valid`` rows at ``start`` through the graph
+    (the first runs eagerly and captures, the other two replay) against
+    the eager body on equal pools and states.  The valid rows' logits and
+    hidden states within 1e-3 of their largest, the slot's Mamba state
+    within 1e-5 of its, the written pages as close; every page position
+    the chunks do not write and every other slot's state bit for bit as
+    they were; each replay notes the weight bytes and counts the f32 x
+    bf16 and scan wrapper calls of the eager chunk."""
+    import numpy as np
+    cfg, graph, eager = _prefill_pair(which, kv_cache_dtype, cuda)
+    slot = 3
+    table = (5 + 3 * np.arange(PREFILL_PP)).astype(np.int32)
+    before = _states(graph)
+    captured, counts = None, {}
+    for i in range(3):
+        embeds = torch.randn((1, PREFILL_C, cfg.d_model), generator=cuda, device="cuda")
+        embeds[:, valid:] = 0.0
+        (got, g_notes, g_mg, g_ms), (want, w_notes, w_mg, w_ms) = (
+            _traced_chunk(r, embeds, table, start, valid, slot=slot) for r in (graph, eager))
+        for g, w in zip(got, want):
+            _assert_mixed_close(g[:valid], w[:valid], tol=1e-3)
+        assert w_notes["prefill_eager"] == 1 and "prefill_eager" not in g_notes
+        for k in ("prefill_graph_captures", "prefill_graph_replays"):
+            counts[k] = counts.get(k, 0) + g_notes.get(k, 0)
+        assert g_notes["mixed_weight_bytes"] == w_notes["mixed_weight_bytes"] > 0
+        assert "widened_weight_bytes" not in g_notes
+        assert (g_mg, g_ms) == (w_mg, w_ms) and g_mg > 0
+        assert (g_ms > 0) == ("M" in cfg.layer_layout)
+        if i == 0:
+            captured = graph._prefill_graph
+        assert graph._prefill_graph is captured is not None and eager._prefill_graph is None
+    assert counts == {"prefill_graph_captures": 1, "prefill_graph_replays": 2}
+    pos = np.arange(start, start + valid)
+    pages, slots = table[pos // GRAPH_PAGE], pos % GRAPH_PAGE
+    for name, was in before.items():
+        now, other = getattr(graph, name), getattr(eager, name)
+        if name.startswith("ssm"):
+            _assert_mixed_close(now[:, slot].float(), other[:, slot].float(), tol=1e-5)
+            keep = [s for s in range(GRAPH_B) if s != slot]
+            assert torch.equal(now[:, keep], was[:, keep]) and torch.equal(other[:, keep],
+                                                                            was[:, keep])
+            continue
+        if now.dtype == torch.int8:     # a last-bit difference may round a code the other way
+            assert int((now[:, pages, slots].int() - other[:, pages, slots].int()).abs().max()) <= 1
+        else:
+            _assert_mixed_close(now[:, pages, slots].float(), other[:, pages, slots].float(),
+                                tol=1e-2)
+        untouched = torch.ones(now.shape[1:3], dtype=torch.bool)
+        untouched[torch.as_tensor(pages), torch.as_tensor(slots)] = False
+        untouched = untouched.cuda()
+        assert torch.equal(now[:, untouched], was[:, untouched]), name
+        assert torch.equal(other[:, untouched], was[:, untouched]), name
+
+
+def test_prefill_graph_engages_at_the_bucket_shape_alone(cuda, monkeypatch):
+    """A chunk of another shape or type (speculative verification's bucket
+    of 8 rows in the model dtype) runs eagerly beside the graph and leaves
+    it in place; new pools or a new drop counter capture anew."""
+    import numpy as np
+
+    from repro_torch.models import moe
+    cfg, graph, _ = _prefill_pair("jamba", "", cuda)
+    table = (5 + 3 * np.arange(PREFILL_PP)).astype(np.int32)
+    embeds = torch.randn((1, PREFILL_C, cfg.d_model), generator=cuda, device="cuda")
+    assert _traced_chunk(graph, embeds, table, 0, 40, slot=1)[1]["prefill_graph_captures"] == 1
+    first = graph._prefill_graph
+    for other in (embeds[:, :8].to(torch.bfloat16), embeds[:, :8]):
+        notes = _traced_chunk(graph, other, table, 40, 8, slot=1)[1]
+        assert notes["prefill_eager"] == 1 and graph._prefill_graph is first
+    assert _traced_chunk(graph, embeds, table, 0, 40, slot=1)[1]["prefill_graph_replays"] == 1
+    monkeypatch.setattr(moe, "drop_counter", torch.zeros((), dtype=torch.long, device="cuda"))
+    assert _traced_chunk(graph, embeds, table, 0, 40, slot=1)[1]["prefill_graph_captures"] == 1
+    second = graph._prefill_graph
+    assert second is not first
+    graph.ssm_h = graph.ssm_h.clone()
+    assert _traced_chunk(graph, embeds, table, 0, 40, slot=1)[1]["prefill_graph_captures"] == 1
+    assert graph._prefill_graph is not second
+    assert _traced_chunk(graph, embeds, table, 0, 40, slot=1)[1]["prefill_graph_replays"] == 1

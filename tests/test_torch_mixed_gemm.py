@@ -224,7 +224,7 @@ def test_a_prefill_chunk_through_the_kernel_path_matches_the_widening(monkeypatc
         out.append(got["r"][0])
     assert float((out[1] - out[0]).abs().max()) <= 1e-5 * float(out[0].abs().max())
     widened, mixed = notes
-    assert set(widened) <= {"widened_weight_bytes", "mamba_resets"}
+    assert set(widened) <= {"widened_weight_bytes", "mamba_resets", "prefill_eager"}
     assert mixed["mixed_weight_bytes"] == widened["widened_weight_bytes"]
     assert "widened_weight_bytes" not in mixed             # every product took the kernel
 
